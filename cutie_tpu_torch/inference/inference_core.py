@@ -1,0 +1,277 @@
+"""Streaming per-frame inference engine: the public API.
+
+The port's counterpart of cutie_tpu/inference/inference_core.py (reference
+cutie/inference/inference_core.py:18-345): step, output_prob_to_mask,
+clear_memory and delete_objects, with the mem_every cadence, staggered
+sensory updates, partial-mask merging and force_permanent commits. The shell
+keeps the host bookkeeping (object ids, buckets, cadence) and calls the step
+functions over a fixed-capacity MemoryState on the model's device.
+
+Inputs follow the reference: image is CHW float in [0, 1] or HWC uint8
+(numpy or torch); masks are HW index masks or [num_objects, H, W] channel
+masks. step returns a (num_objects+1, H, W) probability tensor on the
+model's device.
+"""
+from __future__ import annotations
+
+import logging
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from cutie_tpu_torch.inference.image_feature_store import ImageFeatureStore
+from cutie_tpu_torch.inference.object_manager import ObjectManager
+from cutie_tpu_torch.inference.state import (MemoryState, grow_perm,
+                                             init_state, pad_objects,
+                                             reorder_objects)
+from cutie_tpu_torch.inference.steps import StepFunctions
+from cutie_tpu_torch.ops.tensor_utils import aggregate_wbg_np, compute_pad
+
+log = logging.getLogger(__name__)
+
+class InferenceCore:
+
+    def __init__(self, network: torch.nn.Module, cfg):
+        """network: a CUTIE model (utils.get_default_model.build_model);
+        cfg: an eval config. Runs on the model's device."""
+        if cfg.get("max_internal_size", -1) > 0:
+            raise NotImplementedError("max_internal_size is not ported yet")
+        if cfg.get("save_aux", False):
+            raise NotImplementedError("save_aux is not ported yet")
+        self.network = network
+        self.cfg = cfg
+        self.device = next(network.parameters()).device
+        self.steps = StepFunctions(network, cfg)
+        self.image_feature_store = ImageFeatureStore(self.steps)
+        self.mem_every = cfg.mem_every
+        stagger_updates = cfg.stagger_updates
+        if stagger_updates >= self.mem_every:
+            self.stagger_ti = set(range(1, self.mem_every + 1))
+        else:
+            self.stagger_ti = set(np.round(np.linspace(
+                1, self.mem_every, stagger_updates)).astype(int))
+        # -1: the first frame becomes permanent memory (memory_manager.py:29-38)
+        self.max_mem_frames = cfg.max_mem_frames - 1
+        self.ring_frames = max(self.max_mem_frames, 1)
+        self.object_manager = ObjectManager()
+        self.clear_memory()
+
+    # ------------------------------------------------------------------ admin
+
+    @property
+    def engaged(self) -> bool:
+        return self.state is not None and (self.state.perm_n > 0
+                                           or self.state.work_count > 0)
+
+    def clear_memory(self) -> None:
+        self.curr_ti = -1
+        self.last_mem_ti = 0
+        self.state: Optional[MemoryState] = None
+        # objects first seen in the same step share a bucket (reference
+        # kv_memory_store.py:26-40); slot i -> bucket id
+        self._slot_bucket: list = []
+        self._next_bucket = 0
+        self._new_slots: list = []
+        self.pad = None
+
+    # -------------------------------------------------------------- internals
+
+    def _selector(self) -> torch.Tensor:
+        sel = torch.zeros(self.state.num_objects, device=self.device)
+        sel[:self.object_manager.num_obj] = 1.0
+        return sel
+
+    def _buckets(self):
+        """(bucket_rep tuple, bucket_sel [num_buckets, O]) for the read."""
+        o = self.state.num_objects
+        if not self._slot_bucket:
+            return (0,), torch.ones((1, o), device=self.device)
+        groups = {}
+        for slot, b in enumerate(self._slot_bucket):
+            groups.setdefault(b, []).append(slot)
+        reps = tuple(slots[0] for slots in groups.values())
+        sel = torch.zeros((len(groups), o), device=self.device)
+        for bi, slots in enumerate(groups.values()):
+            sel[bi, slots] = 1.0
+        return reps, sel
+
+    def _ensure_state(self, h16: int, w16: int, num_obj: int) -> None:
+        # the object axis holds exactly the live objects: PyTorch runs
+        # eagerly, so a new count costs no recompilation and needs no
+        # padded capacity buckets
+        mc = self.cfg.model
+        cap = num_obj
+        if self.state is None:
+            self.state = init_state(
+                batch=1, max_objects=cap, h=h16, w=w16,
+                sensory_dim=mc.sensory_dim, key_dim=mc.key_dim,
+                value_dim=mc.value_dim,
+                num_queries=mc.object_transformer.num_queries,
+                embed_dim=mc.object_transformer.embed_dim,
+                perm_frames=max(self.cfg.get("perm_frame_capacity", 1), 1),
+                work_frames=self.ring_frames, device=self.device)
+        elif self.state.num_objects < cap:
+            self.state = pad_objects(self.state, cap)
+
+    def _merge_input_mask(self, mask, objects, idx_mask: bool,
+                          pred_prob_with_bg: Optional[np.ndarray],
+                          h_pad: int, w_pad: int) -> np.ndarray:
+        """Combine a (possibly partial) user mask with the prediction by
+        mutual exclusivity (inference_core.py:258-300). Returns the padded
+        per-slot last mask [O, Hp, Wp] (numpy)."""
+        prev_n = len(self._slot_bucket)
+        tmp_ids, _ = self.object_manager.add_new_objects(list(objects))
+        self._ensure_state(h_pad // 16, w_pad // 16, self.object_manager.num_obj)
+        self._new_slots = []
+        if self.object_manager.num_obj > prev_n:
+            bucket = self._next_bucket
+            self._next_bucket += 1
+            for slot in range(prev_n, self.object_manager.num_obj):
+                self._slot_bucket.append(bucket)
+                self._new_slots.append(slot)
+        o = self.state.num_objects
+        mask = np.asarray(mask)
+        lw, uw, lh, uh = self.pad
+        if idx_mask:
+            mask_p = np.zeros((h_pad, w_pad), mask.dtype)
+            mask_p[lh:h_pad - uh, lw:w_pad - uw] = mask
+        else:
+            mask_p = np.zeros((mask.shape[0], h_pad, w_pad), np.float32)
+            mask_p[:, lh:h_pad - uh, lw:w_pad - uw] = mask
+
+        out = np.zeros((o, h_pad, w_pad), np.float32)
+        if pred_prob_with_bg is not None:
+            pred_no_bg = np.asarray(pred_prob_with_bg[1:o + 1], np.float32).copy()
+            if idx_mask:
+                pred_no_bg[:, mask_p > 0] = 0
+            else:
+                pred_no_bg[:, mask_p.max(0) > 0.5] = 0
+            out[:pred_no_bg.shape[0]] = pred_no_bg
+        for mask_id, tmp_id in enumerate(tmp_ids):
+            if idx_mask:
+                out[tmp_id - 1] = (mask_p == objects[mask_id]).astype(np.float32)
+            else:
+                out[tmp_id - 1] = mask_p[mask_id]
+        return out
+
+    def _to_image(self, image) -> torch.Tensor:
+        """[3, H, W] float in [0, 1] on the device, from CHW float or HWC
+        uint8 input (numpy or torch)."""
+        if not torch.is_tensor(image):
+            image = torch.from_numpy(np.asarray(image))
+        image = image.to(self.device)
+        if image.dtype == torch.uint8 and image.dim() == 3 and image.shape[-1] == 3:
+            return image.permute(2, 0, 1).float() / 255.0
+        return image.float()
+
+    # ------------------------------------------------------------------- step
+
+    @torch.no_grad()
+    def step(self, image, mask=None, objects: Optional[List[int]] = None, *,
+             idx_mask: bool = True, end: bool = False,
+             delete_buffer: bool = True, force_permanent: bool = False
+             ) -> torch.Tensor:
+        """See reference inference_core.py:172-201 for the full semantics."""
+        if objects is None and mask is not None:
+            if idx_mask:
+                raise ValueError("an index mask needs its object ids")
+            objects = list(range(1, mask.shape[0] + 1))
+        image = self._to_image(image)
+        h, w = image.shape[-2:]
+        self.curr_ti += 1
+        self.pad = compute_pad(h, w, 16)
+        lw, uw, lh, uh = self.pad
+        h_pad, w_pad = h + lh + uh, w + lw + uw
+
+        is_mem_frame = ((self.curr_ti - self.last_mem_ti >= self.mem_every)
+                        or (mask is not None)) and (not end)
+        need_segment = (mask is None) or (
+            self.object_manager.num_obj > 0
+            and not self.object_manager.has_all(list(objects)))
+        update_sensory = ((self.curr_ti - self.last_mem_ti)
+                          in self.stagger_ti) and (not end)
+
+        if (mask is None and self.engaged and not force_permanent
+                and delete_buffer and self.curr_ti not in self.image_feature_store):
+            bucket_rep, bucket_sel = self._buckets()
+            prob = self.steps.step_plain(
+                self.state, image, self._selector(), bucket_rep, bucket_sel,
+                update_sensory=update_sensory, do_memorize=is_mem_frame,
+                pad=self.pad, n_out=self.object_manager.num_obj + 1)
+            if is_mem_frame:
+                self.last_mem_ti = self.curr_ti
+            return prob
+
+        feats = self.image_feature_store.get_features(self.curr_ti, image,
+                                                      pad=self.pad)
+        pred_prob_with_bg = None
+        if need_segment:
+            if not self.engaged:
+                log.warning("Trying to segment without any memory!")
+                if delete_buffer:
+                    self.image_feature_store.delete(self.curr_ti)
+                return torch.zeros((1, h, w), device=self.device)
+            bucket_rep, bucket_sel = self._buckets()
+            prob = self.steps.segment(self.state, feats, self._selector(),
+                                      update_sensory, bucket_rep, bucket_sel)
+            pred_prob_with_bg = prob[0]
+
+        if mask is not None:
+            pred_np = (pred_prob_with_bg.cpu().numpy()
+                       if pred_prob_with_bg is not None else None)
+            last_mask = self._merge_input_mask(mask, objects, idx_mask, pred_np,
+                                               h_pad, w_pad)
+            prob_with_bg = torch.from_numpy(
+                aggregate_wbg_np(last_mask, keep_bg=True)).to(self.device)
+            self.steps.set_last_mask(self.state, prob_with_bg[None, 1:])
+            pred_prob_with_bg = prob_with_bg
+
+        if is_mem_frame or force_permanent:
+            hw = (h_pad // 16) * (w_pad // 16)
+            if force_permanent or not self.engaged:
+                mode = "all"
+            elif self._new_slots:
+                mode = "split"   # new objects' tokens become permanent
+            else:
+                mode = "no"
+            if mode in ("all", "split"):
+                need = self.state.perm_n + hw
+                if need > self.state.perm_key.shape[1]:
+                    self.state = grow_perm(self.state, need)
+            new_mask = torch.zeros(self.state.num_objects, device=self.device)
+            new_mask[self._new_slots] = 1.0
+            self.steps.memorize(self.state, feats, self._selector(), new_mask,
+                                mode=mode)
+            self.last_mem_ti = self.curr_ti
+        self._new_slots = []
+        if delete_buffer:
+            self.image_feature_store.delete(self.curr_ti)
+
+        out = pred_prob_with_bg[:, lh:h_pad - uh, lw:w_pad - uw]
+        return out[:self.object_manager.num_obj + 1]
+
+    # ------------------------------------------------------------- public api
+
+    def delete_objects(self, objects: List[int]) -> None:
+        """Remove objects from the bookkeeping and from memory
+        (inference_core.py:330-335)."""
+        old_order = {obj.id: tmp
+                     for obj, tmp in self.object_manager.obj_to_tmp_id.items()}
+        old_buckets = list(self._slot_bucket)
+        self.object_manager.delete_objects(objects)
+        if self.state is None:
+            return
+        o = self.state.num_objects
+        idx = [old_order[self.object_manager.tmp_id_to_obj[t].id] - 1
+               for t in range(1, self.object_manager.num_obj + 1)]
+        keep = len(idx)
+        self._slot_bucket = [old_buckets[i] for i in idx]
+        self.state = reorder_objects(
+            self.state, torch.tensor(idx + [0] * (o - keep), device=self.device),
+            torch.tensor([1.0] * keep + [0.0] * (o - keep), device=self.device))
+
+    def output_prob_to_mask(self, output_prob: torch.Tensor) -> np.ndarray:
+        """argmax, then temporary ids -> object ids (inference_core.py:337-345)."""
+        mask = output_prob.argmax(dim=0).cpu().numpy()
+        return self.object_manager.tmp_to_obj_cls(mask)

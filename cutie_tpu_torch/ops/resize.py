@@ -1,0 +1,53 @@
+"""Resize primitives matching the reference's F.interpolate modes (NCHW).
+
+The port's counterpart of cutie_tpu/ops/resize.py. The reference only
+area-downsamples by integer factors (2, 4, 16), where 'area' equals average
+pooling, and only upsamples bilinearly with align_corners=False.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def _as_4d(x: torch.Tensor):
+    lead = x.shape[:-3]
+    return x.reshape(-1, *x.shape[-3:]), lead
+
+
+def bilinear_resize(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Half-pixel bilinear resize of the last two axes of [..., C, H, W]."""
+    x4, lead = _as_4d(x)
+    y = F.interpolate(x4, size=(out_h, out_w), mode="bilinear",
+                      align_corners=False)
+    return y.reshape(*lead, *y.shape[1:])
+
+
+def upsample_2x(x: torch.Tensor) -> torch.Tensor:
+    return bilinear_resize(x, x.shape[-2] * 2, x.shape[-1] * 2)
+
+
+def upsample_4x(x: torch.Tensor) -> torch.Tensor:
+    return bilinear_resize(x, x.shape[-2] * 4, x.shape[-1] * 4)
+
+
+def area_downsample(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """Average-pool the last two axes by an integer factor; equals
+    F.interpolate(mode='area') for integer ratios. x: [..., H, W]."""
+    h, w = x.shape[-2:]
+    if h % factor or w % factor:
+        raise ValueError(f"{(h, w)} is not divisible by {factor}")
+    y = x.reshape(*x.shape[:-2], h // factor, factor, w // factor, factor)
+    return y.mean(dim=(-3, -1))
+
+
+def nearest_exact_resize_np(mask: np.ndarray, out_h: int, out_w: int
+                            ) -> np.ndarray:
+    """numpy F.interpolate(mode='nearest-exact') for index masks [..., H, W]."""
+    h, w = mask.shape[-2:]
+    ys = np.clip(np.floor((np.arange(out_h) + 0.5) * h / out_h).astype(np.int64),
+                 0, h - 1)
+    xs = np.clip(np.floor((np.arange(out_w) + 0.5) * w / out_w).astype(np.int64),
+                 0, w - 1)
+    return mask[..., ys[:, None], xs[None, :]]
