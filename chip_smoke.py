@@ -27,7 +27,7 @@ import torch
 from cutie_tpu_torch.config import eval_config
 from cutie_tpu_torch.inference import InferenceCore
 from cutie_tpu_torch.ops import cuda_build, read_kernel
-from cutie_tpu_torch.ops.memory import get_similarity
+from cutie_tpu_torch.ops.memory import _float_order_key, get_similarity, topk_threshold
 from cutie_tpu_torch.utils.get_default_model import build_model, set_fp32_precision
 from cutie_tpu_torch.utils.synth_video import synth_frames_480
 
@@ -38,19 +38,13 @@ GOLDEN = REPO / "tests" / "golden"
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 
-# Kernel vs plain version. Both accumulate the similarity in fp64 and round
-# it to fp32 once, so a similarity differs by at most an fp32 rounding
-# (tau: TAU_RTOL, a few fp32 ulps). The weights exp(sim) and their sums are
-# fp32 in another order (and usage is summed with atomics in a varying
-# order): readout and usage agree to ~1e-6 of their scale; READ_RTOL leaves
-# a hundredfold margin.
+# Kernel vs plain version. Both evaluate the similarity by the same fp32
+# operations in the same order (ops/memory.py:get_similarity), so tau must
+# agree bit for bit on every query and both keep the same tokens. The
+# weights exp(sim) and their sums are fp32 in another order (and usage is
+# summed with atomics in a varying order): readout and usage agree to ~1e-6
+# of their scale; READ_RTOL leaves a hundredfold margin.
 READ_RTOL = 1e-4
-TAU_RTOL = 1e-6
-# Queries whose k-th and (k+1)-th similarities differ by less than this
-# (relative) are near ties whose selection can turn on one rounding; they are
-# dropped from the comparison inputs and counted. Exact ties (gap 0) are
-# kept: both versions must keep every tied token.
-NEAR_TIE = 1e-6
 IOU_MEDIAN, IOU_MIN = 0.97, 0.90   # tests/test_parity_480p.py:47-48
 
 T_START = time.perf_counter()
@@ -119,44 +113,32 @@ def read_case(rng, *, p, caps, o, ck=64, cv=256, n_valid=None, pad_queries=0,
 
 
 def plain_similarity(case):
-    return read_kernel.read_similarity(case["mk"], case["ms"], case["valid"],
-                                       case["qk"], case["qe"])
+    return get_similarity(case["mk"][None], case["ms"][None], case["qk"][None],
+                          case["qe"][None], valid=case["valid"][None])[0]
 
 
-def drop_near_ties(case, k):
-    """Remove queries whose k-th and (k+1)-th similarities are near ties."""
-    sim = plain_similarity(case)
-    if sim.shape[1] <= k:
-        return case, 0
-    top = torch.topk(sim, k + 1, dim=1).values
-    gap = top[:, k - 1] - top[:, k]
-    near = (gap > 0) & (gap <= NEAR_TIE * top[:, k - 1].abs().clamp_min(1.0))
-    if "n_pad_queries" in case:
-        near[-case["n_pad_queries"]:] = False   # padded rows stay, at the end
-    if not bool(near.any()):
-        return case, 0
-    keep = ~near
-    case = dict(case, qk=case["qk"][keep].contiguous(), qe=case["qe"][keep].contiguous())
-    return case, int(near.sum())
+def ulps(a, b):
+    """Elementwise distance in fp32 ulps (order keys count the floats)."""
+    return (_float_order_key(a) - _float_order_key(b)).abs()
 
 
 def compare(case, k):
+    """The kernel against its plain version on every query of the case."""
     args = {key: case[key] for key in ("mk", "ms", "valid", "qk", "qe", "values")}
-    rd, us, tau = read_kernel.radix_topk_readout(**args, top_k=k, return_tau=True)
-    rd_p, us_p, tau_p = read_kernel.radix_topk_readout_plain(**args, top_k=k, return_tau=True)
+    rd, us, tau = read_kernel.radix_topk_readout_cuda(**args, top_k=k)
+    rd_p, us_p = read_kernel.radix_topk_readout_plain(**args, top_k=k)
+    tau_p = topk_threshold(plain_similarity(case), k)[:, 0]
     torch.cuda.synchronize()
     rd_err = float((rd - rd_p).abs().max())
     us_err = float((us - us_p).abs().max())
     rd_scale = max(float(rd_p.abs().max()), 1e-30)
     us_scale = max(float(us_p.abs().max()), 1e-30)
-    finite_tau = torch.isfinite(tau_p) & (tau_p > -1e29)
-    tau_rel = float(((tau - tau_p).abs() / tau_p.abs().clamp_min(1e-30))[finite_tau].max()) \
-        if bool(finite_tau.any()) else 0.0
-    res = dict(readout_max_abs=rd_err, readout_rel=rd_err / rd_scale,
-               usage_max_abs=us_err, usage_rel=us_err / us_scale,
-               tau_max_rel=tau_rel, tau_exact_share=float((tau == tau_p).float().mean()))
+    tau_ulps = int(ulps(tau, tau_p).max())
+    res = dict(queries=int(tau.shape[0]), readout_max_abs=rd_err,
+               readout_rel=rd_err / rd_scale, usage_max_abs=us_err,
+               usage_rel=us_err / us_scale, tau_max_ulps=tau_ulps)
     ok = (res["readout_rel"] <= READ_RTOL and res["usage_rel"] <= READ_RTOL
-          and res["tau_max_rel"] <= TAU_RTOL
+          and tau_ulps == 0
           and bool(torch.isfinite(rd).all()) and bool(torch.isfinite(us).all()))
     if "n_pad_queries" in case:
         npad = case["n_pad_queries"]
@@ -207,9 +189,7 @@ def phase_kernel(k=30):
     }
     results, all_ok, max_abs = {}, True, 0.0
     for name, case in cases.items():
-        case, dropped = drop_near_ties(case, k)
         ok, res, _ = compare(case, k)
-        res["near_tie_queries_dropped"] = dropped
         res["ok"] = ok
         results[name] = res
         all_ok &= ok
@@ -231,8 +211,9 @@ def read_bound_ms(args, usage, k):
     """Least time for one read on these inputs: each input byte read once
     (value rows only where some query kept the token), each output written
     once, against the operations of the similarity over the valid tokens
-    (2 FMAs = 4 flops per query, token and key channel; invalid tokens need
-    none) and of the readout, at the fp32 peak."""
+    (4 fp32 operations per query, token and key channel: a difference, two
+    products and a sum; invalid tokens need none) and of the readout, at the
+    fp32 peak."""
     mk, ms, valid, qk, qe, values = args
     n, ck = mk.shape
     n_valid = int(valid.sum())
@@ -293,30 +274,33 @@ def phase_stream(k=30):
     feats = core.steps.encode(torch.from_numpy(frames[-1]).cuda(), pad=core.pad)
     args = core.steps.read_inputs(core.state, feats, rep=0, row=0)
     case = dict(zip(("mk", "ms", "valid", "qk", "qe", "values"), args))
-    case, dropped = drop_near_ties(case, k)
     ok_read, res, (_, usage) = compare(case, k)
     ms_kernel = cuda_time_ms(lambda: read_kernel.radix_topk_readout(*args, top_k=k))
     ms_plain = cuda_time_ms(lambda: read_kernel.radix_topk_readout_plain(*args, top_k=k))
     bound_ms, bound_by = read_bound_ms(args, usage, k)
-    # how far an fp32 evaluation of the same similarity is off on these keys
-    # (the reason the read accumulates it in fp64), at the tokens kept
-    sim64 = plain_similarity(case)
-    sim32 = get_similarity(case["mk"][None], case["ms"][None], case["qk"][None],
-                           case["qe"][None], valid=case["valid"][None])[0]
-    kept = sim64 >= torch.topk(sim64, k, dim=1).values[:, -1:]
-    fp32_err = float((sim32 - sim64).abs()[kept & case["valid"][None]].max())
+    # the fp32 similarity against the same direct form in fp64, at the tokens
+    # kept: exact to fp32 rounding means within Ck + 8 ulps (its relative
+    # error is at most about Ck + 7 units of fp32 roundoff)
+    sim32 = plain_similarity(case)
+    mk, qk, qe = case["mk"].double(), case["qk"].double(), case["qe"].double()
+    sim64 = torch.zeros_like(sim32, dtype=torch.float64)
+    for c in range(qk.shape[1]):
+        sim64 += qe[:, c:c + 1] * (mk[None, :, c] - qk[:, c:c + 1]) ** 2
+    sim64 *= -case["ms"].double()[None] / float(qk.shape[1]) ** 0.5
+    kept = (sim32 >= topk_threshold(sim32, k)) & case["valid"][None]
+    sim_ulps = int(ulps(sim32, sim64.float())[kept].max())
+    sim_ok = sim_ulps <= qk.shape[1] + 8
 
     ok = (launches > 0 and float(np.median(ious)) > IOU_MEDIAN
-          and float(ious.min()) > IOU_MIN and ok_read)
+          and float(ious.min()) > IOU_MIN and ok_read and sim_ok)
     emit({"phase": "stream", "frames": t, "objects": 3, "size": [480, 854],
           "tokens": int(args[0].shape[0]), "queries": int(args[3].shape[0]),
           "read_launches": launches, "fps_frames_2_to_12": fps,
           "fps_frames_3_to_12": fps_steady,
           "frame_ms": frame_ms, "kernel_ms": ms_kernel, "plain_ms": ms_plain,
-          "sim_fp32_error_at_kept_tokens": fp32_err,
+          "sim_fp32_ulps_vs_fp64_at_kept_tokens": sim_ulps,
           "iou_median": float(np.median(ious)), "iou_min": float(ious.min()),
-          "read_on_stream_inputs": dict(res, near_tie_queries_dropped=dropped,
-                                        ok=ok_read),
+          "read_on_stream_inputs": dict(res, ok=ok_read),
           "ok": ok, "seconds": time.perf_counter() - t0})
     if not ok:
         raise RuntimeError("stream phase failed")

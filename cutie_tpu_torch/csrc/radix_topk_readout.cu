@@ -2,7 +2,7 @@
 //
 // Replaces the TPU kernel cutie_tpu/ops/pallas_kernels.py:radix_topk_readout
 // (body _radix_read_kernel). For one batch row it computes, per query p:
-//   sim[p,n] = (sum_c qe*(2 qk mk - mk^2) - sum_c qe qk^2) * ms[n] / sqrt(Ck)
+//   sim[p,n] = -sum_c qe[p,c] (mk[n,c] - qk[p,c])^2 * ms[n] / sqrt(Ck)
 //              (NEG_INF where valid[n] == 0)
 //   tau[p]   = the exact k-th largest sim[p,:]           (ties all kept)
 //   w[p,n]   = exp(sim[p,n]) * [sim[p,n] >= tau[p]]      (sim <= 0: no max)
@@ -14,16 +14,17 @@
 // bytes it must move (keys once, the value rows the queries keep, the
 // outputs) are a few tens of MB.
 //
-// Precision. The similarity is the expanded form the TPU kernel and the
-// reference use, sum_c qe*(2 qk mk - mk^2) - sum_c qe qk^2. Trained keys
-// are long (norms near 17, shrinkage near 16 on the 480p test stream) while
-// the kept similarities are near -1, so the terms cancel by about three
-// digits and an fp32 evaluation is off by ~1e-3 there: two fp32 orders of
-// summation then disagree on tau and on near ties. This kernel therefore
-// accumulates the similarity in fp64 on the CUDA cores and rounds it to
-// fp32 once; the plain version (ops/read_kernel.py) does the same with an
-// fp64 matrix product, so the two agree to an fp32 rounding and both are
-// exact fp32 similarities. No TF32 and no bf16 anywhere.
+// Precision. The TPU kernel and the reference evaluate the expanded form
+// sum_c qe*(2 qk mk - mk^2) - sum_c qe qk^2, which cancels by about three
+// digits on trained keys (norms near 17 while the kept similarities are near
+// -1): in fp32 it is off by ~1e-3 there. This kernel evaluates the direct
+// form instead, whose terms qe*(mk - qk)^2 are nonnegative: in fp32 on the
+// CUDA cores it is exact to fp32 rounding, with no fp64, TF32 or bf16.
+// Every difference, product and sum is rounded on its own (__fsub_rn,
+// __fmul_rn, __fadd_rn: no contraction into FMAs), over the channels in
+// order, exactly as the plain version (ops/memory.py:get_similarity) does
+// with PyTorch ops: the kernel and its plain version agree bit for bit on
+// the similarity, so on tau and on every kept token as well.
 //
 // Design. The TPU kernel keeps a [256, N] block of order keys resident in a
 // 100 MB VMEM. An SM has 227 KB of shared memory, so here one thread block
@@ -31,7 +32,7 @@
 // list) in dynamic shared memory: 8N bytes, 65 KB at N~8.1k and 225 KB at
 // the long-term N~28k. The block
 //   1. streams the keys (mk, ms, valid) from L2/HBM and computes the
-//      similarity (fp64 accumulation, one rounding to fp32),
+//      similarity,
 //   2. finds tau by four MSB-first 8-bit radix passes over the order keys
 //      (shared-memory histograms, warp-aggregated atomics): the same exact
 //      threshold the TPU's 32 one-bit passes give,
@@ -45,7 +46,7 @@
 //   5. adds w/Z to usage with atomicAdd. The order of those adds varies
 //      from run to run, so usage agrees with a fixed-order sum to fp32
 //      rounding, not bit for bit.
-// Padded queries (qk = 1e6, qe = 1) give sim ~ -1e12: every w underflows to
+// Padded queries (qk = 1e6, qe = 1) give sim ~ -1e14: every w underflows to
 // 0 and they add nothing to the readout or to usage.
 
 #include <cuda_runtime.h>
@@ -74,6 +75,13 @@ __device__ __forceinline__ uint32_t order_key(float x) {
 __device__ __forceinline__ float invert_order_key(uint32_t k) {
   uint32_t b = (k >> 31) == 1 ? (k ^ 0x80000000u) : ~k;
   return __uint_as_float(b);
+}
+
+// one channel of the direct-form similarity: s + (qe * (m - q)) * (m - q),
+// each operation rounded on its own
+__device__ __forceinline__ float sim_term(float s, float m, float q, float e) {
+  const float d = __fsub_rn(m, q);
+  return __fadd_rn(s, __fmul_rn(__fmul_rn(e, d), d));
 }
 
 __device__ __forceinline__ float load_value(const float* p) { return *p; }
@@ -123,53 +131,41 @@ radix_topk_readout_kernel(const float* __restrict__ mk,
   extern __shared__ uint32_t smem[];
   uint32_t* keys = smem;                                  // [n]
   int* list = reinterpret_cast<int*>(smem + n);           // [n]
-  __shared__ double q_e[256];
-  __shared__ double q_2[256];                             // 2 * qk * qe
+  __shared__ __align__(16) float q_k[256];
+  __shared__ __align__(16) float q_e[256];
   __shared__ int hist[256];
   __shared__ int warp_sums[kWarps];
   __shared__ uint32_t s_prefix;
   __shared__ int s_krem, s_count;
-  __shared__ double s_bsq;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int p = blockIdx.x;
-  const double inv_sqrt_ck = 1.0 / sqrt((double)ck);
+  // the plain version multiplies by the fp64 value -1/sqrt(Ck) rounded to fp32
+  const float neg_inv_sqrt_ck = (float)(-1.0 / sqrt((double)ck));
 
   // ---- query constants
   for (int c = tid; c < ck; c += kThreads) {
-    double a = qk[(size_t)p * ck + c], e = qe[(size_t)p * ck + c];
-    q_e[c] = e;
-    q_2[c] = 2.0 * a * e;
-  }
-  if (warp == 0) {
-    double s = 0.0;
-    for (int c = lane; c < ck; c += 32) {
-      double a = qk[(size_t)p * ck + c];
-      s += qe[(size_t)p * ck + c] * a * a;
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (lane == 0) s_bsq = s;
+    q_k[c] = qk[(size_t)p * ck + c];
+    q_e[c] = qe[(size_t)p * ck + c];
   }
   __syncthreads();
-  const double b_sq = s_bsq;
+  const float4* qk4 = reinterpret_cast<const float4*>(q_k);
+  const float4* qe4 = reinterpret_cast<const float4*>(q_e);
 
   // ---- 1. similarity -> order keys in shared memory
   for (int i = tid; i < n; i += kThreads) {
     float sim = kNegInf;
     if (valid[i]) {
       const float4* row = reinterpret_cast<const float4*>(mk + (size_t)i * ck);
-      double s = 0.0;
+      float s = 0.f;
       for (int c4 = 0; c4 < ck / 4; ++c4) {
-        const float4 m = __ldg(row + c4);
-        const int c = 4 * c4;
-        const double mx = m.x, my = m.y, mz = m.z, mw = m.w;
-        s = fma(mx, fma(-q_e[c], mx, q_2[c]), s);
-        s = fma(my, fma(-q_e[c + 1], my, q_2[c + 1]), s);
-        s = fma(mz, fma(-q_e[c + 2], mz, q_2[c + 2]), s);
-        s = fma(mw, fma(-q_e[c + 3], mw, q_2[c + 3]), s);
+        const float4 m = __ldg(row + c4), q = qk4[c4], e = qe4[c4];
+        s = sim_term(s, m.x, q.x, e.x);
+        s = sim_term(s, m.y, q.y, e.y);
+        s = sim_term(s, m.z, q.z, e.z);
+        s = sim_term(s, m.w, q.w, e.w);
       }
-      sim = (float)((s - b_sq) * ((double)ms[i] * inv_sqrt_ck));
+      sim = __fmul_rn(__fmul_rn(s, ms[i]), neg_inv_sqrt_ck);
     }
     keys[i] = order_key(sim);
   }

@@ -1,7 +1,7 @@
 """Build a CUDA source into a plain-C shared library and load it with ctypes.
 
 Each source is compiled at first use with
-  nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
+  nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC -Xptxas -v
 into cutie_tpu_torch/_build/, named by a hash of the source and the flags, so
 a warm run loads the existing library and a changed source rebuilds. The
 sources include no PyTorch header: a cold build takes seconds.
@@ -21,9 +21,11 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# what the last load_library call of each source did: {"seconds", "cold"}
+# what the last load_library call of each source did: {"seconds", "cold",
+# "library", "ptxas"}; "ptxas" holds ptxas's register and shared-memory
+# report of a cold build (empty for a warm one)
 BUILD_LOG: Dict[str, Dict[str, object]] = {}
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
@@ -50,6 +52,7 @@ def load_library(source: str) -> ctypes.CDLL:
     src, so = library_path(source)
     t0 = time.perf_counter()
     cold = not so.exists()
+    ptxas = []
     if cold:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
@@ -59,8 +62,10 @@ def load_library(source: str) -> ctypes.CDLL:
             raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
                                f"{res.stdout}\n{res.stderr}")
         os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
+        ptxas = [ln.strip() for ln in (res.stdout + res.stderr).splitlines()
+                 if any(w in ln for w in ("entry function", "Used", "spill"))]
     lib = ctypes.CDLL(str(so))
     BUILD_LOG[source] = {"seconds": time.perf_counter() - t0, "cold": cold,
-                         "library": so.name}
+                         "library": so.name, "ptxas": ptxas}
     _LOADED[source] = lib
     return lib

@@ -19,28 +19,31 @@ NEG_INF = -1e30
 def get_similarity(mk: torch.Tensor, ms: Optional[torch.Tensor],
                    qk: torch.Tensor, qe: Optional[torch.Tensor],
                    valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Anisotropic negative squared L2 similarity (XMem appendix formula).
+    """Anisotropic negative squared L2 similarity (XMem appendix formula),
+    -sum_c qe_c (mk_c - qk_c)^2 * ms / sqrt(Ck).
 
     mk [B, N, Ck], ms [B, N] or None, qk [B, P, Ck], qe [B, P, Ck] or None,
     valid [B, N] bool or None. Returns [B, P, N] fp32.
+
+    Precision: the direct form, summed over the channels in order with every
+    difference, product and sum rounded to fp32 on its own. Its terms are
+    nonnegative, so it is exact to fp32 rounding (relative error at most
+    about (Ck + 7) units of fp32 roundoff). The expanded form the reference
+    uses, qe (2 qk mk - mk^2) - qe qk^2, cancels by about three digits on
+    trained keys. The read kernel (csrc/radix_topk_readout.cu) performs the
+    same operations in the same order, so the two agree bit for bit.
     """
     mk = mk.float()
     qk = qk.float()
     ck = mk.shape[-1]
-    if qe is not None:
-        qe = qe.float()
-        a_sq = torch.einsum("bpc,bnc->bpn", qe, mk * mk)
-        two_ab = 2.0 * torch.einsum("bpc,bnc->bpn", qk * qe, mk)
-        b_sq = (qe * qk * qk).sum(-1, keepdim=True)
-        similarity = -a_sq + two_ab - b_sq
-    else:
-        a_sq = (mk * mk).sum(-1)[:, None, :]
-        two_ab = 2.0 * torch.einsum("bpc,bnc->bpn", qk, mk)
-        similarity = -a_sq + two_ab
+    s = mk.new_zeros(qk.shape[:-1] + mk.shape[-2:-1])       # [B, P, N]
+    for c in range(ck):
+        d = mk[..., None, :, c] - qk[..., :, None, c]
+        t = d if qe is None else qe[..., :, None, c].float() * d
+        s = s + t * d
     if ms is not None:
-        similarity = similarity * ms.float()[:, None, :] / math.sqrt(ck)
-    else:
-        similarity = similarity / math.sqrt(ck)
+        s = s * ms.float()[..., None, :]
+    similarity = s * (-1.0 / math.sqrt(ck))
     if valid is not None:
         similarity = torch.where(valid[:, None, :], similarity,
                                  torch.full_like(similarity, NEG_INF))
@@ -49,17 +52,12 @@ def get_similarity(mk: torch.Tensor, ms: Optional[torch.Tensor],
 
 def _float_order_key(x: torch.Tensor) -> torch.Tensor:
     """fp32 -> order key whose unsigned integer order is the float order
-    (the standard radix-sort transform; no NaNs here). torch has no uint32
-    arithmetic on every backend, so the 32-bit key is held in int64."""
+    (the standard radix-sort transform the read kernel selects on; no NaNs
+    here). Two keys differ by the number of fp32 values between them, so a
+    key difference is a distance in ulps. torch has no uint32 arithmetic on
+    every backend, so the 32-bit key is held in int64."""
     b = x.float().contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
     return torch.where(b >> 31 == 0, b | 0x80000000, (~b) & 0xFFFFFFFF)
-
-
-def _invert_order_key(k: torch.Tensor) -> torch.Tensor:
-    """Inverse of _float_order_key (exact bit-level round trip)."""
-    b = torch.where(k >> 31 == 1, k ^ 0x80000000, (~k) & 0xFFFFFFFF)
-    b = torch.where(b >= 2 ** 31, b - 2 ** 32, b)
-    return b.to(torch.int32).view(torch.float32)
 
 
 def topk_threshold(similarity: torch.Tensor, top_k: int) -> torch.Tensor:

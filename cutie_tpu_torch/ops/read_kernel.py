@@ -2,7 +2,7 @@
 kernel for Hopper and as its plain PyTorch version.
 
 Replaces the TPU kernel cutie_tpu/ops/pallas_kernels.py:radix_topk_readout
-with the same interface and the same exactness: for ONE batch row,
+with the same function and the same exactness: for ONE batch row,
 similarity -> exact k-th largest value tau per query (every tie kept) ->
 w = exp(sim) * [sim >= tau] -> readout sum(w v) / sum(w) and per-token
 usage sum_p w / Z_p. The kernel is csrc/radix_topk_readout.cu, built with
@@ -11,83 +11,41 @@ nvcc at first use (ops/cuda_build.py) and called through ctypes.
 `radix_topk_readout` launches the kernel for CUDA tensors and uses the plain
 version only for CPU tensors; it never falls back from one to the other.
 
-Key layout contract (cutie_tpu pallas_kernels.py:431-439): values come as a
-tuple of per-segment stores [O, cap_s, Cv] (perm | lt | work). Segment s's
-keys, shrinkage and validity occupy [off_s, off_s + cap_s) of mk/ms/valid,
-where off_s is the sum of the earlier caps, each rounded up to a multiple of
-block_n; the pad tokens in between must be invalid. block_n=1 is the
-unpadded layout the port itself uses; block_n=512 reproduces the TPU
-kernel's layout. usage comes back in these key coordinates.
+Layout: values come as one [O, N, Cv] store or a tuple of per-segment
+stores [O, cap_s, Cv] (perm | work) whose caps add up to N; segment s holds
+the values of keys [cap_0 + ... + cap_{s-1}, ... + cap_s).
 """
 from __future__ import annotations
 
 import ctypes
-import math
 from typing import Sequence, Tuple, Union
 
 import torch
 
 from cutie_tpu_torch.ops.cuda_build import load_library
+from cutie_tpu_torch.ops.memory import get_similarity, readout, topk_softmax_radix
 
-NEG_INF = -1e30
 SOURCE = "radix_topk_readout.cu"
 MAX_SEGMENTS = 3
 
 Values = Union[torch.Tensor, Sequence[torch.Tensor]]
 
 
-def segment_offsets(caps: Sequence[int], block_n: int = 1) -> Tuple[int, ...]:
-    """First key index of each segment under the layout contract."""
-    offs, off = [], 0
-    for c in caps:
-        offs.append(off)
-        off += -(-c // block_n) * block_n
-    return tuple(offs)
-
-
 def _as_segments(values: Values) -> Tuple[torch.Tensor, ...]:
     return tuple(values) if isinstance(values, (tuple, list)) else (values,)
 
 
-def read_similarity(mk: torch.Tensor, ms: torch.Tensor, valid: torch.Tensor,
-                    qk: torch.Tensor, qe: torch.Tensor) -> torch.Tensor:
-    """[P, N] similarity as the kernel computes it: the TPU kernel's fused
-    K=2Ck form (pallas_kernels.py:_chunk_similarity) evaluated in fp64 and
-    rounded to fp32 once (in fp32 the form cancels by about three digits on
-    trained keys; see the note in the CUDA source); NEG_INF where invalid."""
-    ck = mk.shape[1]
-    mk, qk, qe = mk.double(), qk.double(), qe.double()
-    qcat = torch.cat([qe, 2.0 * qk * qe], dim=1)            # [P, 2Ck]
-    mcat = torch.cat([-(mk * mk), mk], dim=1)               # [N, 2Ck]
-    b_sq = (qe * qk * qk).sum(1, keepdim=True)
-    sim = ((qcat @ mcat.T - b_sq) * (ms.double()[None, :] / math.sqrt(ck))).float()
-    return torch.where(valid[None, :], sim, torch.full_like(sim, NEG_INF))
-
-
 def radix_topk_readout_plain(mk: torch.Tensor, ms: torch.Tensor,
                              valid: torch.Tensor, qk: torch.Tensor,
-                             qe: torch.Tensor, values: Values, top_k: int, *,
-                             block_n: int = 1, return_tau: bool = False):
+                             qe: torch.Tensor, values: Values, top_k: int):
     """Plain PyTorch version of the kernel (same arguments and results):
-    read_similarity, tau as torch.topk's k-th value, and the readout as one
-    einsum over the masked exp weights, in fp32."""
-    segs = _as_segments(values)
-    n = mk.shape[0]
-    o, _, cv = segs[0].shape
-    v_flat = torch.zeros((o, n, cv), dtype=torch.float32, device=mk.device)
-    caps = [s.shape[1] for s in segs]
-    for off, cap, s in zip(segment_offsets(caps, block_n), caps, segs):
-        v_flat[:, off:off + cap] = s.float()
-
-    sim = read_similarity(mk, ms, valid, qk, qe)
-    tau = torch.topk(sim, min(top_k, n), dim=1).values[:, -1:]
-    w = torch.where(sim >= tau, torch.exp(sim), torch.zeros_like(sim))
-    z = w.sum(1, keepdim=True).clamp_min(1e-30)
-    readout = torch.einsum("pn,onc->opc", w, v_flat) / z[None]
-    usage = (w / z).sum(0)
-    if return_tau:
-        return readout, usage, tau[:, 0]
-    return readout, usage
+    memory.get_similarity -> memory.topk_softmax_radix (tau as torch.topk's
+    k-th value, every tie kept) -> memory.readout, all in fp32."""
+    v = torch.cat([s.float() for s in _as_segments(values)], dim=1)
+    sim = get_similarity(mk[None], ms[None], qk[None], qe[None],
+                         valid=valid[None])
+    affinity, usage = topk_softmax_radix(sim, top_k, return_usage=True)
+    return readout(affinity, v[None])[0], usage[0]
 
 
 _MAX_TOKENS = {}
@@ -109,29 +67,35 @@ def _check(cond: bool, msg: str) -> None:
 
 def radix_topk_readout(mk: torch.Tensor, ms: torch.Tensor, valid: torch.Tensor,
                        qk: torch.Tensor, qe: torch.Tensor, values: Values,
-                       top_k: int, *, block_n: int = 1,
-                       return_tau: bool = False):
+                       top_k: int):
     """Exact top-k memory read for ONE batch row.
 
     mk [N, Ck] fp32, ms [N] fp32, valid [N] bool, qk / qe [P, Ck] fp32.
     values: [O, N, Cv] or a tuple of up to three per-segment [O, cap_s, Cv]
     stores, fp32 or bf16 (the amp mode: read as bf16, accumulated in fp32).
     Pad queries with qk=1e6, qe=1: they read out 0 and add nothing to usage.
-    Returns (readout [O, P, Cv] fp32, usage [N] fp32), plus tau [P] fp32
-    when return_tau.
+    Returns (readout [O, P, Cv] fp32, usage [N] fp32).
 
-    CUDA tensors launch the kernel (and count one launch in
-    `radix_topk_readout.launches`); CPU tensors use the plain version."""
+    CUDA tensors launch the kernel (radix_topk_readout_cuda); CPU tensors
+    use the plain version."""
     if mk.device.type == "cpu":
-        return radix_topk_readout_plain(mk, ms, valid, qk, qe, values, top_k,
-                                        block_n=block_n, return_tau=return_tau)
+        return radix_topk_readout_plain(mk, ms, valid, qk, qe, values, top_k)
+    return radix_topk_readout_cuda(mk, ms, valid, qk, qe, values, top_k)[:2]
+
+
+def radix_topk_readout_cuda(mk: torch.Tensor, ms: torch.Tensor,
+                            valid: torch.Tensor, qk: torch.Tensor,
+                            qe: torch.Tensor, values: Values, top_k: int):
+    """Launch the kernel on CUDA tensors (arguments as radix_topk_readout)
+    and count one launch in `radix_topk_readout.launches`. Returns
+    (readout, usage, tau [P] fp32), tau being each query's k-th largest
+    similarity. Raises on anything the kernel does not take."""
     _check(mk.device.type == "cuda", f"unsupported device {mk.device}")
     segs = _as_segments(values)
     n, ck = mk.shape
     p = qk.shape[0]
     o, _, cv = segs[0].shape
     caps = [int(s.shape[1]) for s in segs]
-    offs = segment_offsets(caps, block_n)
     dev = mk.device
     for name, t, dt in (("mk", mk, torch.float32), ("ms", ms, torch.float32),
                         ("valid", valid, torch.bool), ("qk", qk, torch.float32),
@@ -153,7 +117,7 @@ def radix_topk_readout(mk: torch.Tensor, ms: torch.Tensor, valid: torch.Tensor,
                and s.dim() == 3 and s.shape[0] == o and s.shape[2] == cv,
                "value segments must be contiguous [O, cap, Cv] tensors of one "
                "dtype on mk's device")
-    _check(offs[-1] + caps[-1] <= n, f"segments {caps} overrun N={n}")
+    _check(sum(caps) == n, f"segment caps {caps} must add up to N={n}")
 
     lib = load_library(SOURCE)
     if SOURCE not in _MAX_TOKENS:
@@ -167,8 +131,9 @@ def radix_topk_readout(mk: torch.Tensor, ms: torch.Tensor, valid: torch.Tensor,
     out = torch.empty((o, p, cv), dtype=torch.float32, device=dev)
     usage = torch.zeros((n,), dtype=torch.float32, device=dev)
     tau = torch.empty((p,), dtype=torch.float32, device=dev)
+    offs = [sum(caps[:i]) for i in range(len(caps))]
     ptrs = [s.data_ptr() for s in segs] + [None] * (MAX_SEGMENTS - len(segs))
-    offs3 = list(offs) + [n] * (MAX_SEGMENTS - len(segs))
+    offs3 = offs + [n] * (MAX_SEGMENTS - len(segs))
     caps3 = caps + [0] * (MAX_SEGMENTS - len(segs))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -181,9 +146,7 @@ def radix_topk_readout(mk: torch.Tensor, ms: torch.Tensor, valid: torch.Tensor,
         raise RuntimeError(f"radix_topk_readout kernel launch failed: "
                            f"cudaError {err}")
     radix_topk_readout.launches += 1
-    if return_tau:
-        return out, usage, tau
-    return out, usage
+    return out, usage, tau
 
 
 radix_topk_readout.launches = 0

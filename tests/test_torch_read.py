@@ -9,6 +9,9 @@ kernel is held to that plain version on the card by chip_smoke.py.
 Tolerances:
 - tau: the exact k-th largest value, bit for bit equal on the same
   similarity array (both are exact selections).
+- similarity: the port's direct form within (Ck + 8) fp32 ulps of the
+  same similarity in fp64 (its error bound is (Ck + 7) units of roundoff),
+  and bit for bit equal to the kernel's order of fp32 operations.
 - fp32 readout vs the TPU kernel: rtol 1e-4, atol 1e-5. The TPU kernel's
   fp32 readout is a three-pass bf16 split product, good to ~3e-5 relative
   (tests/test_pallas_kernel.py uses the same bound).
@@ -24,6 +27,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from cutie_tpu.ops import memory as jmem  # noqa: E402
@@ -33,6 +37,19 @@ from cutie_tpu_torch.ops.read_kernel import (radix_topk_readout,  # noqa: E402
                                              radix_topk_readout_plain)
 
 K = 30
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _synchronous_jax_dispatch():
+    """Run cutie_tpu's computations synchronously in this module. With the
+    CPU backend's asynchronous dispatch, the first PyTorch read after a JAX
+    read now and then came out perturbed by ~5e-5 (about one process in
+    fifteen, never with JAX idle): some JAX work outlives the results it
+    returns, and the port's exact comparisons must not run beside it."""
+    old = jax.config.values["jax_cpu_enable_async_dispatch"]
+    jax.config.update("jax_cpu_enable_async_dispatch", False)
+    yield
+    jax.config.update("jax_cpu_enable_async_dispatch", old)
 
 
 def _inputs(seed, n, p, o, ck=64, cv=64, n_valid=None):
@@ -70,6 +87,11 @@ def _multi_segment(seed, caps, bn, p, o, ck=64, cv=64):
     return mk, ms, valid, qk, qe, tuple(segs)
 
 
+def _offsets(caps, bn=256):
+    """First key index of each segment in the TPU kernel's layout."""
+    return [sum(-(-c // bn) * bn for c in caps[:i]) for i in range(len(caps))]
+
+
 CASES = {
     "single_segment": dict(args=lambda: _inputs(2, 1024, 128, 3, n_valid=700)),
     "multi_segment": dict(args=lambda: _multi_segment(5, (296, 424, 560), 256,
@@ -91,6 +113,7 @@ def test_read_matches_tpu_kernel(name):
         qk = np.concatenate([qk, np.full((case["pad"], ck), 1e6, np.float32)])
         qe = np.concatenate([qe, np.ones((case["pad"], ck), np.float32)])
     segs = vals if isinstance(vals, tuple) else (vals,)
+    multi = isinstance(vals, tuple)
     bf16 = case.get("bf16", False)
     p_pad = -(-qk.shape[0] // 128) * 128
     qk_j = np.concatenate([qk, np.full((p_pad - qk.shape[0], qk.shape[1]), 1e6,
@@ -105,16 +128,32 @@ def test_read_matches_tpu_kernel(name):
     rd_j, us_j = np.asarray(rd_j)[:, :qk.shape[0]], np.asarray(us_j)
 
     t = torch.from_numpy
-    tsegs = tuple(t(s).to(torch.bfloat16) if bf16 else t(s) for s in segs)
+    # the TPU kernel's padded segment layout reaches the port as one
+    # zero-padded value store over the same keys (its pad keys are invalid)
+    v_pad = np.zeros((segs[0].shape[0], mk.shape[0], segs[0].shape[2]),
+                     np.float32)
+    for off, s in zip(_offsets([s.shape[1] for s in segs]), segs):
+        v_pad[:, off:off + s.shape[1]] = s
+    v_pad = t(v_pad).to(torch.bfloat16) if bf16 else t(v_pad)
     launches = radix_topk_readout.launches
-    rd, us = radix_topk_readout(t(mk), t(ms), t(valid), t(qk), t(qe), tsegs, K,
-                                block_n=256)
+    rd, us = radix_topk_readout(t(mk), t(ms), t(valid), t(qk), t(qe), v_pad, K)
     assert radix_topk_readout.launches == launches  # CPU: the plain version
     assert rd.shape == (segs[0].shape[0], qk.shape[0], segs[0].shape[2])
     assert us.shape == (mk.shape[0],)
     tol = dict(rtol=2e-2, atol=2e-2) if bf16 else dict(rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(rd.numpy(), rd_j, **tol)
     np.testing.assert_allclose(us.numpy(), us_j, rtol=1e-5, atol=1e-5)
+    if multi:
+        # the port's own layout: the segments unpadded, values in place
+        rows = np.concatenate([np.arange(off, off + s.shape[1]) for off, s in
+                               zip(_offsets([s.shape[1] for s in segs]), segs)])
+        rd_u, us_u = radix_topk_readout(
+            t(mk[rows]), t(ms[rows]), t(valid[rows]), t(qk), t(qe),
+            tuple(t(s) for s in segs), K)
+        np.testing.assert_allclose(rd_u.numpy(), rd.numpy(), rtol=1e-6,
+                                   atol=1e-7)
+        np.testing.assert_allclose(us_u.numpy(), us.numpy()[rows], rtol=1e-6,
+                                   atol=1e-7)
     if case.get("pad"):
         assert np.abs(rd.numpy()[:, p:]).max() == 0.0
     if name == "fewer_valid_than_k":
@@ -165,13 +204,56 @@ def test_threshold_and_order_key_exact():
     key_j = np.asarray(jmem._float_order_key(jnp.asarray(sim)))
     key_t = tmem._float_order_key(torch.from_numpy(sim)).numpy()
     np.testing.assert_array_equal(key_t.astype(np.uint32), key_j)
-    back = tmem._invert_order_key(torch.from_numpy(key_t)).numpy()
-    np.testing.assert_array_equal(back.view(np.uint32), sim.view(np.uint32))
+    # keys count the floats: the next float up is one key further
+    x = np.array([-1e30, -3.5, -1e-30, 0.0, 2.0], np.float32)
+    up = np.nextafter(x, np.float32(np.inf))
+    step = (tmem._float_order_key(torch.from_numpy(up))
+            - tmem._float_order_key(torch.from_numpy(x))).numpy()
+    np.testing.assert_array_equal(step, 1)
 
     # every tie at the k-th value is kept, as in cutie_tpu's radix read
     aff_j, _ = jmem.topk_softmax_radix(jnp.asarray(sim), K)
     aff_t, _ = tmem.topk_softmax_radix(torch.from_numpy(sim), K)
     np.testing.assert_array_equal(aff_t.numpy() > 0, np.asarray(aff_j) > 0)
+
+
+@pytest.mark.parametrize("trained_like", [False, True])
+def test_similarity_direct_form_exact(trained_like):
+    """get_similarity is the kernel's order of fp32 operations, bit for bit,
+    and within (Ck + 8) ulps of the same similarity in fp64. The trained-like
+    keys (norms near 17, shrinkage near 16, queries near their keys) are
+    where the expanded form cancels by three digits."""
+    rng = np.random.default_rng(11)
+    ck, n, p = 64, 700, 96
+    if trained_like:
+        mk = (2.0 + 0.3 * rng.normal(size=(n, ck))).astype(np.float32)
+        qk = (mk[rng.integers(0, n, p)]
+              + 0.05 * rng.normal(size=(p, ck))).astype(np.float32)
+        ms = rng.uniform(12, 20, size=(n,)).astype(np.float32)
+    else:
+        mk = rng.normal(size=(n, ck)).astype(np.float32)
+        qk = rng.normal(size=(p, ck)).astype(np.float32)
+        ms = rng.uniform(1, 3, size=(n,)).astype(np.float32)
+    qe = rng.uniform(size=(p, ck)).astype(np.float32)
+    t = torch.from_numpy
+    sim = tmem.get_similarity(t(mk)[None], t(ms)[None], t(qk)[None],
+                              t(qe)[None])[0]
+
+    # csrc/radix_topk_readout.cu, step 1, in numpy fp32
+    s = np.zeros((p, n), np.float32)
+    for c in range(ck):
+        d = mk[None, :, c] - qk[:, None, c]
+        s = s + (qe[:, None, c] * d) * d
+    ref = (s * ms[None]) * np.float32(-1.0 / np.sqrt(ck))
+    np.testing.assert_array_equal(sim.numpy().view(np.uint32),
+                                  ref.view(np.uint32))
+
+    m64, q64, e64 = mk.astype(np.float64), qk.astype(np.float64), qe.astype(np.float64)
+    sim64 = -(e64[:, None] * (m64[None] - q64[:, None]) ** 2).sum(-1) \
+        * ms.astype(np.float64)[None] / np.sqrt(ck)
+    dist = (tmem._float_order_key(sim)
+            - tmem._float_order_key(t(sim64.astype(np.float32)))).abs()
+    assert int(dist.max()) <= ck + 8
 
 
 def test_read_wrapper_rejects_other_devices():
