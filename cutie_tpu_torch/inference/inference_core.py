@@ -2,10 +2,12 @@
 
 The port's counterpart of cutie_tpu/inference/inference_core.py (reference
 cutie/inference/inference_core.py:18-345): step, output_prob_to_mask,
-clear_memory and delete_objects, with the mem_every cadence, staggered
-sensory updates, partial-mask merging and force_permanent commits. The shell
-keeps the host bookkeeping (object ids, buckets, cadence) and calls the step
-functions over a fixed-capacity MemoryState on the model's device.
+clear_memory, clear_non_permanent_memory, clear_sensory_memory and
+delete_objects, with the mem_every cadence, staggered sensory updates,
+partial-mask merging, force_permanent commits and, in long-term mode,
+consolidation. The shell keeps the host bookkeeping (object ids, buckets,
+cadence) and calls the step functions over a fixed-capacity MemoryState on
+the model's device.
 
 Inputs follow the reference: image is CHW float in [0, 1] or HWC uint8
 (numpy or torch); masks are HW index masks or [num_objects, H, W] channel
@@ -51,9 +53,26 @@ class InferenceCore:
         else:
             self.stagger_ti = set(np.round(np.linspace(
                 1, self.mem_every, stagger_updates)).astype(int))
-        # -1: the first frame becomes permanent memory (memory_manager.py:29-38)
-        self.max_mem_frames = cfg.max_mem_frames - 1
-        self.ring_frames = max(self.max_mem_frames, 1)
+        # memory budgets; -1: the first frame becomes permanent memory
+        # (memory_manager.py:29-38)
+        self.use_long_term = bool(cfg.get("use_long_term", False))
+        if self.use_long_term:
+            lt = cfg.long_term
+            self.max_mem_frames = lt.max_mem_frames - 1
+            self.min_mem_frames = lt.min_mem_frames - 1
+            self.num_prototypes = lt.num_prototypes
+            self.max_long_tokens = lt.max_num_tokens
+            self.buffer_tokens = lt.buffer_tokens
+            # one slack slot: consolidation runs once the ring holds
+            # max_mem_frames frames, so the ring never overwrites a frame
+            self.ring_frames = self.max_mem_frames + 1
+            self.lt_capacity = self.max_long_tokens + self.num_prototypes
+        else:
+            self.max_mem_frames = cfg.max_mem_frames - 1
+            self.ring_frames = max(self.max_mem_frames, 1)
+            self.lt_capacity = 0
+        # long-term consolidations run since construction
+        self.consolidations = 0
         self.object_manager = ObjectManager()
         self.clear_memory()
 
@@ -74,6 +93,25 @@ class InferenceCore:
         self._next_bucket = 0
         self._new_slots: list = []
         self.pad = None
+
+    def clear_non_permanent_memory(self) -> None:
+        """Forget the working and long-term memory; keep the permanent
+        memory (inference_core.py:124-140)."""
+        self.curr_ti = -1
+        self.last_mem_ti = 0
+        st = self.state
+        if st is not None:
+            st.work_start = st.work_count = st.lt_count = 0
+            for t in (st.work_obj_valid, st.lt_obj_valid, st.work_use,
+                      st.work_life, st.lt_use, st.lt_life):
+                t.zero_()
+
+    def clear_sensory_memory(self) -> None:
+        """Forget the sensory memory (inference_core.py:142-146)."""
+        self.curr_ti = -1
+        self.last_mem_ti = 0
+        if self.state is not None:
+            self.state.sensory.zero_()
 
     # -------------------------------------------------------------- internals
 
@@ -110,9 +148,24 @@ class InferenceCore:
                 num_queries=mc.object_transformer.num_queries,
                 embed_dim=mc.object_transformer.embed_dim,
                 perm_frames=max(self.cfg.get("perm_frame_capacity", 1), 1),
-                work_frames=self.ring_frames, device=self.device)
+                work_frames=self.ring_frames, lt_capacity=self.lt_capacity,
+                device=self.device)
         elif self.state.num_objects < cap:
             self.state = pad_objects(self.state, cap)
+
+    def _maybe_consolidate(self) -> None:
+        """Consolidate once the ring holds max_mem_frames frames, evicting
+        first when the long-term memory is near its budget
+        (inference_core.py:331-345)."""
+        st = self.state
+        if not self.use_long_term or st.work_count < self.max_mem_frames:
+            return
+        lt_keep = None
+        if st.lt_count >= self.max_long_tokens - self.num_prototypes:
+            lt_keep = (self.max_long_tokens - self.num_prototypes
+                       - self.buffer_tokens)
+        self.steps.consolidate(st, st.work_count - self.min_mem_frames, lt_keep)
+        self.consolidations += 1
 
     def _merge_input_mask(self, mask, objects, idx_mask: bool,
                           pred_prob_with_bg: Optional[np.ndarray],
@@ -201,6 +254,7 @@ class InferenceCore:
                 pad=self.pad, n_out=self.object_manager.num_obj + 1)
             if is_mem_frame:
                 self.last_mem_ti = self.curr_ti
+                self._maybe_consolidate()
             return prob
 
         feats = self.image_feature_store.get_features(self.curr_ti, image,
@@ -244,6 +298,8 @@ class InferenceCore:
             self.steps.memorize(self.state, feats, self._selector(), new_mask,
                                 mode=mode)
             self.last_mem_ti = self.curr_ti
+            if mode in ("no", "split"):
+                self._maybe_consolidate()
         self._new_slots = []
         if delete_buffer:
             self.image_feature_store.delete(self.curr_ti)

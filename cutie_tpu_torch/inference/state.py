@@ -6,14 +6,17 @@ buffer of fixed capacity with validity masks:
 
   - permanent memory: append-only token buffer (the first frame and forced
     commits);
-  - working memory: a ring of F frame slots of HW tokens each, FIFO;
+  - working memory: a ring of F frame slots of HW tokens each, FIFO, with
+    the frames' selection and usage counters for consolidation;
+  - long-term memory: an append buffer of L prototype tokens with usage
+    counters, compacted by usage-ranked eviction (kv_memory_store.py:209-242);
   - sensory memory [B, O, Cs, h, w] and object memory, a streaming-average
     summary accumulator [B, O, Q, E+1].
 
 Objects are a padded axis O; per-object validity masks [O, tokens] replace
 the reference's buckets. The counters are host integers (PyTorch runs
-eagerly, so there is nothing to trace). Long-term memory is not part of
-this state yet.
+eagerly, so there is nothing to trace). Outside long-term mode the
+long-term buffers hold L = 0 tokens.
 """
 from __future__ import annotations
 
@@ -34,10 +37,20 @@ class MemoryState:
     work_shrink: torch.Tensor      # [B, F, HW]
     work_value: torch.Tensor       # [B, O, F, HW, Cv]
     work_obj_valid: torch.Tensor   # [O, F] bool
+    work_sel: torch.Tensor         # [B, F, HW, Ck] selection (long-term mode)
+    work_use: torch.Tensor         # [B, F, HW] usage counters
+    work_life: torch.Tensor        # [B, F, HW]
+    lt_key: torch.Tensor           # [B, L, Ck]
+    lt_shrink: torch.Tensor        # [B, L]
+    lt_value: torch.Tensor         # [B, O, L, Cv]
+    lt_obj_valid: torch.Tensor     # [O, L] bool
+    lt_use: torch.Tensor           # [B, L]
+    lt_life: torch.Tensor          # [B, L]
     last_mask: torch.Tensor        # [B, O, H0, W0] previous frame's probabilities
     perm_n: int = 0                # permanent tokens used
     work_start: int = 0            # ring slot of the oldest frame
     work_count: int = 0            # frames in the ring
+    lt_count: int = 0              # long-term tokens used
 
     @property
     def num_objects(self) -> int:
@@ -49,12 +62,18 @@ class MemoryState:
         rel = (torch.arange(f, device=self.work_key.device) - self.work_start) % f
         return rel < self.work_count
 
+    def lt_valid(self) -> torch.Tensor:
+        """[L] bool: which long-term slots hold live tokens."""
+        return torch.arange(self.lt_key.shape[1],
+                            device=self.lt_key.device) < self.lt_count
+
 
 def init_state(*, batch: int, max_objects: int, h: int, w: int,
                sensory_dim: int, key_dim: int, value_dim: int,
                num_queries: int, embed_dim: int, perm_frames: int,
-               work_frames: int, device) -> MemoryState:
-    """An empty state; h, w are the stride-16 dims (HW = h*w tokens/frame)."""
+               work_frames: int, lt_capacity: int = 0, device) -> MemoryState:
+    """An empty state; h, w are the stride-16 dims (HW = h*w tokens/frame),
+    lt_capacity the long-term tokens (0 outside long-term mode)."""
     hw = h * w
     pcap = perm_frames * hw
     B, O = batch, max_objects
@@ -73,6 +92,15 @@ def init_state(*, batch: int, max_objects: int, h: int, w: int,
         work_shrink=z(B, work_frames, hw),
         work_value=z(B, O, work_frames, hw, value_dim),
         work_obj_valid=z(O, work_frames, dtype=torch.bool),
+        work_sel=z(B, work_frames, hw, key_dim),
+        work_use=z(B, work_frames, hw),
+        work_life=z(B, work_frames, hw),
+        lt_key=z(B, lt_capacity, key_dim),
+        lt_shrink=z(B, lt_capacity),
+        lt_value=z(B, O, lt_capacity, value_dim),
+        lt_obj_valid=z(O, lt_capacity, dtype=torch.bool),
+        lt_use=z(B, lt_capacity),
+        lt_life=z(B, lt_capacity),
         last_mask=z(B, O, h * 16, w * 16),
     )
 
@@ -96,6 +124,8 @@ def pad_objects(state: MemoryState, new_max_objects: int) -> MemoryState:
         perm_obj_valid=_grow(state.perm_obj_valid, 0, n),
         work_value=_grow(state.work_value, 1, n),
         work_obj_valid=_grow(state.work_obj_valid, 0, n),
+        lt_value=_grow(state.lt_value, 1, n),
+        lt_obj_valid=_grow(state.lt_obj_valid, 0, n),
         last_mask=_grow(state.last_mask, 1, n),
     )
 
@@ -130,5 +160,7 @@ def reorder_objects(state: MemoryState, idx: torch.Tensor,
         perm_obj_valid=ob(state.perm_obj_valid, 0),
         work_value=ob(state.work_value, 1),
         work_obj_valid=ob(state.work_obj_valid, 0),
+        lt_value=ob(state.lt_value, 1),
+        lt_obj_valid=ob(state.lt_obj_valid, 0),
         last_mask=ob(state.last_mask, 1),
     )

@@ -1,11 +1,13 @@
 """Where a streaming frame's time goes on the card.
 
-    python3 -m cutie_tpu_torch.profile_stream
+    python3 -m cutie_tpu_torch.profile_stream [--long-term]
 
 Streams cutie-base (trained test weights, d17 settings: mem_every 5,
-top_k 30, 5 working-memory frames) over WARMUP frames of the synthetic
-480x854 three-object video, then traces FRAMES - WARMUP further frames
-(two of them memory frames) with torch.profiler and prints one JSON line:
+top_k 30, 5 working-memory frames; with --long-term, long-term mode at the
+settings tests/golden/stream480_lt_trained.npz was recorded with) over
+WARMUP frames of the synthetic 480x854 three-object video, then traces
+FRAMES - WARMUP further frames (two of them memory frames; in long-term
+mode one of them consolidates) with torch.profiler and prints one JSON line:
 wall ms per frame (synchronised), kernel time per frame, the device's busy
 share (kernel time over wall time), and kernel time by kernel, largest
 first.
@@ -13,6 +15,7 @@ Where the profiler records no device time, the device numbers are null.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import time
 from pathlib import Path
@@ -34,9 +37,16 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_stream: needs a CUDA device")
 
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--long-term", action="store_true")
+    long_term = parser.parse_args().long_term
+
     cfg = eval_config("base")
     cfg.merge({"mem_every": 5, "top_k": 30, "stagger_updates": 5,
-               "max_mem_frames": 5})
+               "max_mem_frames": 5, "use_long_term": long_term,
+               "long_term": {"count_usage": True, "max_mem_frames": 4,
+                             "min_mem_frames": 2, "num_prototypes": 64,
+                             "max_num_tokens": 4000, "buffer_tokens": 1000}})
     core = InferenceCore(build_model(cfg, str(WEIGHTS)), cfg)
     frames, mask0 = synth_frames_480(FRAMES)
     frames = torch.from_numpy(frames).cuda()
@@ -73,6 +83,8 @@ def main() -> None:
     wall_ms = sum(wall) / n
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
+        "long_term": long_term,
+        "consolidations": core.consolidations,
         "frames_traced": n,
         "wall_ms_per_frame": wall,
         "mean_wall_ms": wall_ms,

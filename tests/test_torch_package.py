@@ -41,11 +41,42 @@ def test_port_imports(path):
 
 def test_cuda_sources_are_plain_c():
     sources = sorted((PORT / "csrc").glob("*.cu*"))
-    assert sources
+    names = {src.name for src in sources}
+    assert {"radix_topk_readout.cu", "fused_topk_readout.cu",
+            "read_common.cuh"} <= names, names
     for src in sources:
         text = src.read_text()
         for header in ("torch/", "ATen/", "c10/", "pybind11"):
             assert f"#include <{header}" not in text, (src, header)
-        assert 'extern "C"' in text
+        if src.suffix == ".cu":
+            # a library of its own with a plain-C interface, sharing the
+            # similarity and order key of both kernels
+            assert 'extern "C"' in text, src
+            assert '#include "read_common.cuh"' in text, src
     for path in PY_FILES:
         assert "cpp_extension" not in path.read_text(), path
+
+
+def test_chip_smoke_imports_nothing_of_cutie_tpu():
+    imported = {name for name, _ in _imports(REPO / "chip_smoke.py")}
+    assert not imported & {"jax", "jaxlib", "flax", "cutie_tpu", "tools"}, imported
+    assert "cutie_tpu_torch" in imported
+
+
+def test_build_key_covers_every_csrc_file(tmp_path, monkeypatch):
+    """A change to any file under csrc/, the shared header included, gives
+    every library a new name, so each is rebuilt."""
+    import shutil
+
+    from cutie_tpu_torch.ops import cuda_build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(PORT / "csrc", csrc)
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", csrc)
+    sources = ("radix_topk_readout.cu", "fused_topk_readout.cu")
+    before = {s: cuda_build.library_path(s).name for s in sources}
+    assert len(set(before.values())) == 2
+    header = csrc / "read_common.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {s: cuda_build.library_path(s).name for s in sources}
+    assert all(before[s] != after[s] for s in sources), (before, after)
