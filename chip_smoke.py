@@ -6,7 +6,7 @@ Phases, each printing one JSON line with its wall seconds:
   env        the card, the CUDA version and nvidia-smi's name and power limit;
   build      nvcc builds both read kernels into cutie_tpu_torch/_build/, one
              process per source, started together; ptxas's report, and the
-             resident blocks per SM of each path;
+             resident blocks per SM of each kernel and stage;
   stream     the working-memory path: InferenceCore.step of cutie-base on the
              trained test weights, 12 frames of the synthetic 480x854
              three-object video, held to the recorded reference masks; the
@@ -18,10 +18,13 @@ Phases, each printing one JSON line with its wall seconds:
   kernel     the read kernel against its plain version on the card: random
              cases at the working-memory shapes and edge cases, and the
              long-term sizes of the lvos-val presets built from the
-             long-term stream's own keys and values (N = 27,948 at 480p, and
-             past the 28,666 keys one block's shared memory holds: N = 29,568
-             at 480p with a late object, N = 38,134 at 600p); which path each
-             case took, times; both paths on the N = 27,948 case, bit for bit;
+             long-term stream's own keys and values (N = 27,948 and 29,568
+             at 480p, N = 38,134 at 600p), Ck = 96, and every key tied (the
+             select stage's fallbacks); on every case, its readout and
+             tau bit for bit equal to the streaming kernel's, the same read
+             in waves of 192 queries bit for bit equal to the default waves,
+             and how many keys the select stage's pivot leaves; times, and
+             each stage's time alone at d17 and lvos600;
   fused      the streaming kernel (fused_topk_readout) against the plain
              version and against the read kernel: tau bit for bit;
   kernels    one line listing every ported kernel.
@@ -170,6 +173,14 @@ def preset_case(src, rng, *, frame_tokens, perm_frames, perm_valid_frames,
                 qe=src["qe"][qi].contiguous(), values=tuple(values))
 
 
+def all_tied(case):
+    """The case with every key, shrinkage and validity those of token 0:
+    every similarity of a query ties, and every token is kept."""
+    for key in ("mk", "ms", "valid"):
+        case[key][:] = case[key][0]
+    return case
+
+
 def plain_similarity(case):
     return get_similarity(case["mk"][None], case["ms"][None], case["qk"][None],
                           case["qe"][None], valid=case["valid"][None])[0]
@@ -249,6 +260,113 @@ def timed_case(case, k, plain_iters=20):
                 bound_by=bound_by)
 
 
+def clocks_during(fn, seconds=1.0):
+    """The SM clock (MHz) and power draw (W) nvidia-smi samples every 50 ms
+    while fn runs back to back for about `seconds`: medians and sample
+    count (no samples if nvidia-smi gives none)."""
+    proc = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                             "--format=csv,noheader,nounits", "-lms", "50"],
+                            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+                            text=True)
+    try:
+        end = time.perf_counter() + seconds
+        while time.perf_counter() < end:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        out, _ = proc.communicate(timeout=30)
+    rows = []
+    for line in out.splitlines():
+        try:
+            rows.append([float(x) for x in line.split(",")])
+        except ValueError:
+            continue
+    rows = [r for r in rows if len(r) == 2]
+    if not rows:
+        return {"samples": 0}
+    clock, power = np.median(np.asarray(rows), axis=0)
+    return {"samples": len(rows), "sm_clock_mhz": float(clock),
+            "power_w": float(power)}
+
+
+def stage_times(case, k):
+    """Each stage of the read kernel alone (CUDA events), over one wave of
+    every query, and the SM clock while the similarity stage runs."""
+    sim, sel = read_kernel.radix_topk_readout_stages(
+        *(case[key] for key in ARGS), top_k=k)
+    sim_ms = cuda_time_ms(sim)
+    return {"similarity_ms": sim_ms, "select_readout_ms": cuda_time_ms(sel),
+            "during_similarity": clocks_during(sim)}
+
+
+def fused_agreement(case, k, result):
+    """Kernel #2 on the same keys, the segments concatenated to fp32 values:
+    tau and readout bit for bit equal to the read kernel's `result`."""
+    args = {key: case[key] for key in ARGS}
+    args["values"] = torch.cat([v.float() for v in args["values"]], dim=1)
+    rd2, _, tau2 = read_kernel.fused_topk_readout_cuda(**args, top_k=k)
+    torch.cuda.synchronize()
+    rd, _, tau = result
+    return {"readout_bit_equal_to_fused": torch.equal(rd, rd2),
+            "tau_bit_equal_to_fused": torch.equal(tau.view(torch.int32),
+                                                  tau2.view(torch.int32))}
+
+
+def candidate_stats(case, k):
+    """What the select stage's pivot leaves to select from, on these inputs,
+    beside what a first 8-bit radix pass would: per query, the keys >= the
+    k-th largest of the 256 threads' maxima (thread t holds keys 4t..4t+3
+    of every 1,024, as in the kernel), and the keys whose top byte is at
+    least tau's (the keys above tau's bin plus tau's bin)."""
+    keys = _float_order_key(plain_similarity(case))  # [P, N] int64
+    p, n = keys.shape
+    kk = min(k, n)
+    width = -(-n // 1024) * 1024
+    padded = torch.zeros((p, width), dtype=keys.dtype, device=keys.device)
+    padded[:, :n] = keys
+    maxima = padded.view(p, -1, 256, 4).amax(dim=(1, 3))
+    pivot = (maxima.topk(kk, dim=1).values[:, -1:] if kk <= 256
+             else torch.zeros((p, 1), dtype=keys.dtype, device=keys.device))
+    cand = (keys >= pivot).sum(1).float()
+    tau = keys.topk(kk, dim=1).values[:, -1:]
+    top_bin = ((keys >> 24) >= (tau >> 24)).sum(1).float()
+    return {"pivot_candidates_median": float(cand.median()),
+            "pivot_candidates_max": int(cand.max()),
+            "over_candidate_capacity": int((cand > 2048).sum()),
+            "tau_top_byte_bin_and_above_median": float(top_bin.median()),
+            "tau_top_byte_bin_and_above_max": int(top_bin.max())}
+
+
+WAVE_QUERIES = 192  # the wave-boundary check's wave: divides no case's P
+
+
+def wave_boundary(case, k, result):
+    """The same read in waves of WAVE_QUERIES queries: tau, kept set and
+    readout bit for bit equal to `result`, the read in the default waves
+    (one wave at every size but lvos600's), usage within READ_RTOL (atomics
+    in another order)."""
+    n = case["mk"].shape[0]
+    p = case["qk"].shape[0]
+    budget = 4 * read_kernel.workspace_ld(n) * WAVE_QUERIES
+    segs = tuple(v for v in case["values"] if v.shape[1])
+    args = [case[key] for key in ARGS[:5]] + [segs, k]
+    waves = read_kernel.radix_topk_readout_waves(n, p, budget)
+    rd, us, tau = read_kernel._radix_launch(*args, workspace_bytes=budget)
+    torch.cuda.synchronize()
+    rd1, us1, tau1 = result
+    res = {"waves": len(waves), "last_wave_queries": waves[-1][1],
+           "tau_bit_equal": torch.equal(tau.view(torch.int32), tau1.view(torch.int32)),
+           "kept_equal": torch.equal(us > 0, us1 > 0),
+           "readout_bit_equal": torch.equal(rd, rd1),
+           "usage_rel": rel_err(us, us1)}
+    res["ok"] = (len(waves) > 1 and p % WAVE_QUERIES != 0 and res["tau_bit_equal"]
+                 and res["kept_equal"] and res["readout_bit_equal"]
+                 and res["usage_rel"] <= READ_RTOL)
+    return res
+
+
 def stream_ious(core, probs, masks, size):
     ious = []
     for ti, prob in enumerate(probs):
@@ -299,15 +417,15 @@ def phase_env():
 def phase_build(k=30):
     t0 = time.perf_counter()
     cuda_build.load_libraries([read_kernel.SOURCE, read_kernel.FUSED_SOURCE])
-    max_tokens = read_kernel.radix_topk_readout_max_tokens()
-    occupancy = {f"radix_topk_readout N={n} ({read_kernel.radix_topk_readout_path(n)})":
-                 read_kernel.radix_topk_readout_occupancy(n)
-                 for n in (8_100, 12_164, 27_948, 29_568, 38_134)}
-    occupancy[f"fused_topk_readout k={k}"] = read_kernel.fused_topk_readout_occupancy(k)
+    occupancy = {
+        "radix_topk_readout fp32 values": read_kernel.radix_topk_readout_occupancy(),
+        "radix_topk_readout bf16 values":
+            read_kernel.radix_topk_readout_occupancy(bf16=True),
+        f"fused_topk_readout k={k}": read_kernel.fused_topk_readout_occupancy(k)}
     emit({"phase": "build", "kernels": cuda_build.BUILD_LOG,
-          "radix_shared_max_tokens": max_tokens,
           "resident_blocks_per_sm": occupancy,
           "seconds": time.perf_counter() - t0})
+    return occupancy
 
 
 def phase_stream(k=30):
@@ -440,38 +558,35 @@ def phase_kernel(lt_case, k=30):
         "lvos600": preset_case(
             lt_case, rng, frame_tokens=2_546, perm_frames=1, perm_valid_frames=1,
             lt_valid=9_984, work_frames=10, work_live=6, queries=2_546),
+        # Ck = 96: two channel chunks, the second a partial one
+        "ck96": read_case(rng, p=300, caps=(900, 1100), o=2, ck=96),
+        # every key the same: past the select stage's 2,048 candidates and
+        # 1,024 kept tokens, so its fallbacks over the row in global memory
+        "all_tied": all_tied(read_case(rng, p=200, caps=(1000, 2000), o=2)),
     }
     results, all_ok, max_abs = {}, True, 0.0
     for name, case in cases.items():
-        ok, res, _ = compare(case, k)
-        res["path"] = read_kernel.radix_topk_readout_path(res["tokens"])
+        ok, res, result = compare(case, k)
+        res.update(fused_agreement(case, k, result))
+        res["wave_boundary"] = wave_boundary(case, k, result)
+        res["candidates"] = candidate_stats(case, k)
+        ok = (ok and res["readout_bit_equal_to_fused"]
+              and res["tau_bit_equal_to_fused"] and res["wave_boundary"]["ok"])
+        res["waves"] = len(read_kernel.radix_topk_readout_waves(
+            res["tokens"], res["queries"]))
         if name.startswith("lvos") or name == "d17":
             res.update(timed_case(case, k, plain_iters=5))
+        if name in ("d17", "lvos600"):
+            res.update(stage_times(case, k))
+            args = tuple(case[key] for key in ARGS[:5]) + (
+                tuple(v for v in case["values"] if v.shape[1]), k)
+            res["kernel_ms_32MiB_workspace"] = cuda_time_ms(
+                lambda: read_kernel._radix_launch(*args, workspace_bytes=1 << 25))
         res["ok"] = ok
         results[name] = res
         all_ok &= ok
         max_abs = max(max_abs, res["readout_max_abs"])
 
-    # both scratch paths on a memory either can hold: the same kernel body,
-    # so the same tau, kept set and readout, bit for bit
-    case = cases["lvos480"]
-    args = [case[key] for key in ARGS[:5]] + [case["values"], k]
-    shared = read_kernel._radix_launch(*args, global_scratch=False)
-    glob = read_kernel._radix_launch(*args, global_scratch=True)
-    torch.cuda.synchronize()
-    paths = {"tau_bit_equal": torch.equal(shared[2].view(torch.int32),
-                                          glob[2].view(torch.int32)),
-             "kept_equal": torch.equal(shared[1] > 0, glob[1] > 0),
-             "readout_bit_equal": torch.equal(shared[0], glob[0]),
-             "usage_rel": rel_err(glob[1], shared[1]),
-             "shared_ms": cuda_time_ms(
-                 lambda: read_kernel._radix_launch(*args, global_scratch=False)),
-             "global_ms": cuda_time_ms(
-                 lambda: read_kernel._radix_launch(*args, global_scratch=True))}
-    paths_ok = (paths["tau_bit_equal"] and paths["kept_equal"]
-                and paths["readout_bit_equal"] and paths["usage_rel"] <= READ_RTOL)
-    results["lvos480"]["both_paths"] = dict(paths, ok=paths_ok)
-    all_ok &= paths_ok
     emit({"phase": "kernel", "cases": results, "ok": all_ok,
           "seconds": time.perf_counter() - t0})
     if not all_ok:
@@ -530,7 +645,7 @@ def phase_fused(stream_case, large_case, k=30):
 
 def main():
     smi = phase_env()
-    phase_build()
+    occupancy = phase_build()
     sres = phase_stream()
     lres = phase_lt_stream()
     kres = phase_kernel(lres["case"])
@@ -547,9 +662,13 @@ def main():
         "ms": sres["kernel_ms"], "plain_ms": sres["plain_ms"],
         "bound_ms": sres["bound_ms"], "bound_by": sres["bound_by"],
         "library_ms": None,
+        "stage_ms": {case: {key: kres["results"][case][key]
+                            for key in ("similarity_ms", "select_readout_ms")}
+                     for case in ("d17", "lvos600")},
+        "blocks_per_sm": occupancy["radix_topk_readout fp32 values"],
         "lt_stream": {key: lres[key] for key in ("kernel_ms", "plain_ms", "bound_ms")},
         "lvos600": {key: kres["results"]["lvos600"][key]
-                    for key in ("path", "kernel_ms", "plain_ms", "bound_ms")},
+                    for key in ("waves", "kernel_ms", "plain_ms", "bound_ms")},
     }, {
         "name": "fused_topk_readout", "route": "cuda",
         "source": "cutie_tpu_torch/csrc/fused_topk_readout.cu",

@@ -259,19 +259,28 @@ class InferenceCore:
 
         feats = self.image_feature_store.get_features(self.curr_ti, image,
                                                       pad=self.pad)
+
+        def empty_result():
+            # free the features cached above (nothing will consume them: ti
+            # advances every step) and match the normal output size
+            if delete_buffer:
+                self.image_feature_store.delete(self.curr_ti)
+            return torch.zeros((1, h, w), device=self.device)
+
         pred_prob_with_bg = None
         if need_segment:
             if not self.engaged:
                 log.warning("Trying to segment without any memory!")
-                if delete_buffer:
-                    self.image_feature_store.delete(self.curr_ti)
-                return torch.zeros((1, h, w), device=self.device)
+                return empty_result()
             bucket_rep, bucket_sel = self._buckets()
             prob = self.steps.segment(self.state, feats, self._selector(),
                                       update_sensory, bucket_rep, bucket_sel)
             pred_prob_with_bg = prob[0]
 
         if mask is not None:
+            if idx_mask and len(objects) == 0:
+                log.warning("Trying to insert an empty mask as memory!")
+                return empty_result()
             pred_np = (pred_prob_with_bg.cpu().numpy()
                        if pred_prob_with_bg is not None else None)
             last_mask = self._merge_input_mask(mask, objects, idx_mask, pred_np,

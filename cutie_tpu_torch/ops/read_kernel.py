@@ -26,8 +26,9 @@ to N; segment s holds the values of keys [cap_0 + ... + cap_{s-1}, ...
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Sequence, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -37,12 +38,16 @@ from cutie_tpu_torch.ops.memory import get_similarity, readout, topk_softmax_rad
 SOURCE = "radix_topk_readout.cu"
 FUSED_SOURCE = "fused_topk_readout.cu"
 MAX_SEGMENTS = 3
-# radix_topk_readout takes N up to this many keys (token indices and the
-# per-query scratch offsets stay far inside their integer types)
+# radix_topk_readout takes N up to this many keys (token indices and
+# workspace offsets stay far inside their integer types)
 MAX_TOKENS = 1 << 24
-# the global-scratch path's workspace: at most this many bytes, 8 per key
-# and query of a wave
+# radix_topk_readout's workspace of order keys: at most this many bytes,
+# 4 per key (N rounded up to 4) and query of a wave
 WORKSPACE_BYTES = 1 << 28
+# queries a block of the similarity stage takes; waves are multiples of it
+QUERY_TILE = 64
+# the device type the kernels launch on
+KERNEL_DEVICE = "cuda"
 # fused_topk_readout keeps O(top_k) keys a query in shared memory
 FUSED_MAX_TOP_K = 4096
 
@@ -67,7 +72,6 @@ def radix_topk_readout_plain(mk: torch.Tensor, ms: torch.Tensor,
 
 
 _BOUND = set()
-_MAX_TOKENS = {}  # device index -> radix_topk_readout_max_tokens
 
 
 def _library(source: str) -> ctypes.CDLL:
@@ -76,10 +80,11 @@ def _library(source: str) -> ctypes.CDLL:
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         ip = ctypes.POINTER(ctypes.c_int)
         if source == SOURCE:
-            sigs = {"radix_topk_readout_launch":
-                    [vp] * 8 + [ll] * 6 + [i] * 8 + [vp, i] + [vp] * 4,
-                    "radix_topk_readout_max_tokens": [],
-                    "radix_topk_readout_occupancy": [i, i, i, ip]}
+            sigs = {"radix_topk_readout_similarity_launch":
+                    [vp] * 5 + [i] * 5 + [vp] * 2,
+                    "radix_topk_readout_select_launch":
+                    [vp, i] + [vp] * 3 + [ll] * 6 + [i] * 9 + [vp] * 4,
+                    "radix_topk_readout_occupancy": [i, ip, ip]}
         else:
             sigs = {"fused_topk_readout_launch": [vp] * 6 + [i] * 6 + [vp] * 4,
                     "fused_topk_readout_occupancy": [i, ip]}
@@ -97,7 +102,8 @@ def _check(cond: bool, msg: str, name: str = "radix_topk_readout") -> None:
 
 def _check_keys(name, mk, ms, valid, qk, qe, top_k):
     """Checks shared by both kernels' wrappers; returns (n, ck, p)."""
-    _check(mk.device.type == "cuda", f"unsupported device {mk.device}", name)
+    _check(mk.device.type == KERNEL_DEVICE, f"unsupported device {mk.device}",
+           name)
     n, ck = mk.shape
     p = qk.shape[0]
     for arg, t, dt in (("mk", mk, torch.float32), ("ms", ms, torch.float32),
@@ -139,112 +145,165 @@ def radix_topk_readout(mk: torch.Tensor, ms: torch.Tensor, valid: torch.Tensor,
     return radix_topk_readout_cuda(mk, ms, valid, qk, qe, values, top_k)[:2]
 
 
-def radix_topk_readout_max_tokens(device=None) -> int:
-    """The largest N whose scratch (8 bytes a key) fits one block's shared
-    memory on this card (28,666 on an H100). radix_topk_readout keeps the
-    scratch in shared memory up to this N and in a global-memory workspace
-    above it: the same kernel body, so the same results."""
-    index = None if device is None else torch.device(device).index
-    if index is None:
-        index = torch.cuda.current_device()
-    if index not in _MAX_TOKENS:
-        with torch.cuda.device(index):
-            _MAX_TOKENS[index] = int(_library(SOURCE).radix_topk_readout_max_tokens())
-    if _MAX_TOKENS[index] < 0:
-        raise RuntimeError("radix_topk_readout_max_tokens: CUDA query failed")
-    return _MAX_TOKENS[index]
+def workspace_ld(n: int) -> int:
+    """Keys a workspace row holds: N rounded up to 4 (16-byte rows)."""
+    return (n + 3) // 4 * 4
 
 
-def radix_topk_readout_path(n: int, device=None) -> str:
-    """Where the kernel keeps its scratch at N=n: "shared" or "global"."""
-    return "shared" if n <= radix_topk_readout_max_tokens(device) else "global"
+def radix_topk_readout_waves(n: int, p: int,
+                             workspace_bytes: int = WORKSPACE_BYTES):
+    """The waves of one read, [(first query, queries), ...] in order: the
+    workspace holds 4 * workspace_ld(n) bytes a query of a wave and at most
+    workspace_bytes, every wave but the last is a multiple of QUERY_TILE,
+    and a wave has at least one tile whatever the budget."""
+    fit = workspace_bytes // (4 * workspace_ld(n))
+    wave = max(QUERY_TILE, fit // QUERY_TILE * QUERY_TILE)
+    return [(p0, min(wave, p - p0)) for p0 in range(0, p, wave)]
 
 
-def radix_topk_readout_wave(n: int, p: int) -> int:
-    """Queries per launch of the global-scratch path: the workspace holds
-    8n bytes a query and at most WORKSPACE_BYTES."""
-    return max(1, min(p, WORKSPACE_BYTES // (8 * n)))
+@contextlib.contextmanager
+def _on_device(dev: torch.device):
+    """Make dev the CUDA runtime's current device; yields the handle of
+    PyTorch's current stream there, on which the kernels launch."""
+    with torch.cuda.device(dev):
+        yield torch.cuda.current_stream(dev).cuda_stream
 
 
-def radix_topk_readout_occupancy(n: int, bf16: bool = False, device=None) -> int:
-    """Resident blocks per SM of the path N=n takes, from
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} failed: cudaError {err}")
+
+
+def radix_topk_readout_occupancy(bf16: bool = False, device=None) -> dict:
+    """Resident blocks per SM of each stage, from
     cudaOccupancyMaxActiveBlocksPerMultiprocessor."""
-    blocks = ctypes.c_int(0)
-    glob = radix_topk_readout_path(n, device) == "global"
+    sim, sel = ctypes.c_int(0), ctypes.c_int(0)
     with torch.cuda.device(device):
         err = _library(SOURCE).radix_topk_readout_occupancy(
-            n, int(glob), int(bf16), ctypes.byref(blocks))
-    if err != 0:
-        raise RuntimeError(f"radix_topk_readout occupancy query: cudaError {err}")
-    return blocks.value
+            int(bf16), ctypes.byref(sim), ctypes.byref(sel))
+    _raise_on(err, "radix_topk_readout occupancy query")
+    return {"similarity": sim.value, "select_readout": sel.value}
 
 
 def radix_topk_readout_cuda(mk: torch.Tensor, ms: torch.Tensor,
                             valid: torch.Tensor, qk: torch.Tensor,
                             qe: torch.Tensor, values: Values, top_k: int):
     """Launch the kernel on CUDA tensors (arguments as radix_topk_readout)
-    and count one launch in `radix_topk_readout.launches`. Returns
-    (readout, usage, tau [P] fp32), tau being each query's k-th largest
-    similarity. Raises on anything the kernel does not take."""
-    n, ck, p = _check_keys("radix_topk_readout", mk, ms, valid, qk, qe, top_k)
-    segs = _as_segments(values)
-    o, _, cv = segs[0].shape
-    caps = [int(s.shape[1]) for s in segs]
-    dev = mk.device
-    _check(1 <= len(segs) <= MAX_SEGMENTS, f"1..{MAX_SEGMENTS} value segments")
-    vdt = segs[0].dtype
-    _check(vdt in (torch.float32, torch.bfloat16), f"values dtype {vdt}")
-    for s in segs:
-        _check(s.device == dev and s.dtype == vdt and s.is_contiguous()
-               and s.dim() == 3 and s.shape[0] == o and s.shape[2] == cv,
-               "value segments must be contiguous [O, cap, Cv] tensors of one "
-               "dtype on mk's device")
-    _check(sum(caps) == n, f"segment caps {caps} must add up to N={n}")
-
-    # an empty segment (the long-term store outside long-term mode) holds
-    # no key; leaving it out spares the kernel a segment test per value read
-    segs = tuple(s for s in segs if s.shape[1])
-    out, usage, tau = _radix_launch(mk, ms, valid, qk, qe, segs, top_k,
-                                    radix_topk_readout_path(n, dev) == "global")
+    and count one launch per read in `radix_topk_readout.launches`, however
+    many waves the read takes. Returns (readout, usage, tau [P] fp32), tau
+    being each query's k-th largest similarity. Raises on anything the
+    kernel does not take."""
+    _check_keys("radix_topk_readout", mk, ms, valid, qk, qe, top_k)
+    segs = _check_segments(mk, values)
+    out, usage, tau = _radix_launch(mk, ms, valid, qk, qe, segs, top_k)
     radix_topk_readout.launches += 1
     return out, usage, tau
 
 
-def _radix_launch(mk, ms, valid, qk, qe, segs, top_k, global_scratch: bool):
-    """Launch csrc/radix_topk_readout.cu on checked arguments, with its
-    scratch in shared memory or in a global workspace of waves of
-    radix_topk_readout_wave queries. radix_topk_readout_cuda takes the path
-    by N; chip_smoke.py also runs the global path below the ceiling, to hold
-    the two paths to the same bits."""
-    n, ck = mk.shape
-    p = qk.shape[0]
+def _check_segments(mk, values) -> Tuple[torch.Tensor, ...]:
+    """The value segments, checked; an empty segment (the long-term store
+    outside long-term mode) holds no key and is left out, which spares the
+    kernel a segment."""
+    segs = _as_segments(values)
+    _check(1 <= len(segs) <= MAX_SEGMENTS, f"1..{MAX_SEGMENTS} value segments")
     o, _, cv = segs[0].shape
+    vdt = segs[0].dtype
+    _check(vdt in (torch.float32, torch.bfloat16), f"values dtype {vdt}")
+    for s in segs:
+        _check(s.device == mk.device and s.dtype == vdt and s.is_contiguous()
+               and s.dim() == 3 and s.shape[0] == o and s.shape[2] == cv,
+               "value segments must be contiguous [O, cap, Cv] tensors of one "
+               "dtype on mk's device")
     caps = [int(s.shape[1]) for s in segs]
-    dev = mk.device
-    lib = _library(SOURCE)
-    out = torch.empty((o, p, cv), dtype=torch.float32, device=dev)
-    usage = torch.zeros((n,), dtype=torch.float32, device=dev)
-    tau = torch.empty((p,), dtype=torch.float32, device=dev)
-    scratch, wave = None, 0
-    if global_scratch:
-        wave = radix_topk_readout_wave(n, p)
-        scratch = torch.empty((wave * 2 * n,), dtype=torch.int32, device=dev)
-    offs = [sum(caps[:i]) for i in range(len(caps))]
-    ptrs = [s.data_ptr() for s in segs] + [None] * (MAX_SEGMENTS - len(segs))
-    offs3 = offs + [n] * (MAX_SEGMENTS - len(segs))
-    caps3 = caps + [0] * (MAX_SEGMENTS - len(segs))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.radix_topk_readout_launch(
-            mk.data_ptr(), ms.data_ptr(), valid.data_ptr(), qk.data_ptr(),
-            qe.data_ptr(), *ptrs, *offs3, *caps3, len(segs), n, p, ck, o, cv,
-            int(top_k), int(segs[0].dtype == torch.bfloat16),
-            None if scratch is None else scratch.data_ptr(), wave,
-            out.data_ptr(), usage.data_ptr(), tau.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"radix_topk_readout kernel launch failed: "
-                           f"cudaError {err}")
-    return out, usage, tau
+    _check(sum(caps) == mk.shape[0],
+           f"segment caps {caps} must add up to N={mk.shape[0]}")
+    return tuple(s for s in segs if s.shape[1])
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t itself if its data is 16-byte aligned (the similarity stage copies
+    16 bytes at a time), else an aligned copy."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _radix_launch(mk, ms, valid, qk, qe, segs, top_k,
+                  workspace_bytes: Optional[int] = None):
+    """Launch csrc/radix_topk_readout.cu on checked arguments: per wave of
+    radix_topk_readout_waves, the similarity stage then the select and
+    readout stage, on one workspace the waves share. chip_smoke.py also
+    runs it with a small workspace_bytes, to hold a read over several waves
+    to the same bits as over one. workspace_bytes defaults to
+    WORKSPACE_BYTES."""
+    run = _RadixRun(mk, ms, valid, qk, qe, segs, top_k,
+                    workspace_bytes or WORKSPACE_BYTES)
+    with _on_device(mk.device) as stream:
+        for wave in run.waves:
+            run.similarity(wave, stream)
+            run.select_readout(wave, stream)
+    return run.out, run.usage, run.tau
+
+
+class _RadixRun:
+    """One read's outputs, workspace and launch arguments."""
+
+    def __init__(self, mk, ms, valid, qk, qe, segs, top_k, workspace_bytes):
+        n, self.ck = mk.shape
+        p = qk.shape[0]
+        o, _, cv = segs[0].shape
+        dev = mk.device
+        self.keys = (mk, ms, valid, _aligned(qk), _aligned(qe))
+        self.waves = radix_topk_readout_waves(n, p, workspace_bytes)
+        self.lib = _library(SOURCE)
+        self.out = torch.empty((o, p, cv), dtype=torch.float32, device=dev)
+        self.usage = torch.zeros((n,), dtype=torch.float32, device=dev)
+        self.tau = torch.empty((p,), dtype=torch.float32, device=dev)
+        self.workspace = torch.empty((self.waves[0][1] * workspace_ld(n),),
+                                     dtype=torch.int32, device=dev)
+        caps = [int(s.shape[1]) for s in segs]
+        pad = MAX_SEGMENTS - len(segs)
+        self.segs = ([s.data_ptr() for s in segs] + [None] * pad
+                     + [sum(caps[:i]) for i in range(len(caps))] + [n] * pad
+                     + caps + [0] * pad + [len(segs)])
+        self.shape = (n, p, o, cv, int(top_k),
+                      int(segs[0].dtype == torch.bfloat16))
+
+    def similarity(self, wave, stream):
+        n, ck = self.keys[0].shape
+        _raise_on(self.lib.radix_topk_readout_similarity_launch(
+            *(t.data_ptr() for t in self.keys), n, ck, *wave, workspace_ld(n),
+            self.workspace.data_ptr(), stream),
+            "radix_topk_readout similarity launch")
+
+    def select_readout(self, wave, stream):
+        n, p, o, cv, top_k, bf16 = self.shape
+        _raise_on(self.lib.radix_topk_readout_select_launch(
+            self.workspace.data_ptr(), workspace_ld(n), *self.segs, n, p,
+            *wave, o, cv, top_k,
+            bf16, self.out.data_ptr(), self.usage.data_ptr(),
+            self.tau.data_ptr(), stream),
+            "radix_topk_readout select launch")
+
+
+def radix_topk_readout_stages(mk, ms, valid, qk, qe, values, top_k):
+    """The kernel's two stages as separate callables over one wave of every
+    query, for timing each alone: (similarity, select_readout). Run
+    similarity first; select_readout reads the workspace it filled (usage
+    accumulates over repeated calls). Launches made through them are not
+    counted."""
+    _check_keys("radix_topk_readout", mk, ms, valid, qk, qe, top_k)
+    segs = _check_segments(mk, values)
+    p = qk.shape[0]
+    budget = 4 * workspace_ld(mk.shape[0]) * -(-p // QUERY_TILE) * QUERY_TILE
+    run = _RadixRun(mk, ms, valid, qk, qe, segs, top_k, budget)
+    (wave,) = run.waves
+
+    def stage(fn):
+        def launch():
+            with _on_device(mk.device) as stream:
+                fn(wave, stream)
+        return launch
+
+    return stage(run.similarity), stage(run.select_readout)
 
 
 radix_topk_readout.launches = 0

@@ -28,7 +28,7 @@ from cutie_tpu_torch.inference import InferenceCore
 from cutie_tpu_torch.utils.get_default_model import build_model
 from cutie_tpu_torch.utils.synth_video import synth_frames_480
 
-FRAMES, WARMUP, TOP = 22, 12, 15
+FRAMES, WARMUP, TOP = 22, 12, 30
 WEIGHTS = (Path(__file__).resolve().parent.parent / "tests" / "golden"
            / "state_dict_base_trained.npz")
 

@@ -227,50 +227,6 @@ def test_consolidate_matches_cutie_tpu(case):
     assert float(state.lt_value[0, 1, protos].abs().max()) == 0.0
 
 
-# ------------------------------------------------------- eviction stream
-
-def test_multibucket_eviction_stream_matches_cutie_tpu():
-    """tests/test_consolidation.py:test_multibucket_lt_eviction_stream
-    through the port and cutie_tpu side by side: a second object added
-    mid-video (two buckets), tiny long-term budgets so that consolidation
-    and usage-ranked eviction both run, the clip looped three times."""
-    from tests.test_inference_stream import _build_core
-
-    rec = dict(np.load(require_golden("stream_small_adddel.npz")))
-    frames, mask0, mask2 = rec["frames"], rec["mask0"], rec["mask2"]
-    extra = {"mem_every": 1,
-             "long_term": {"count_usage": True, "max_mem_frames": 3,
-                           "min_mem_frames": 1, "num_prototypes": 8,
-                           "max_num_tokens": 64, "buffer_tokens": 16}}
-    jcore = _build_core(use_long_term=True, cfg_extra=extra)
-    settings = dict(SETTINGS)
-    settings.update(extra)
-    core = _port_core("small", settings)
-
-    t = frames.shape[0]
-    ours, theirs, evictions = [], [], 0
-    for rep in range(3):
-        for ti in range(t):
-            i = rep * t + ti
-            args = ((frames[ti], np.where(mask0 == 1, 1, 0)), {"objects": [1]}) \
-                if i == 0 else ((frames[ti], mask2), {"objects": [2]}) \
-                if i == 4 else ((frames[ti],), {})
-            lt_before = core.state.lt_count if core.state is not None else 0
-            ours.append(core.step(*args[0], **args[1]).numpy())
-            theirs.append(np.asarray(jcore.step(*args[0], **args[1])))
-            assert core.state.lt_count == jcore._lt_count, i
-            n = core.state.lt_count
-            np.testing.assert_array_equal(
-                core.state.lt_obj_valid[:, :n].numpy(),
-                np.asarray(jcore.state.lt_obj_valid)[:2, :n], err_msg=str(i))
-            evictions += core.state.lt_count < lt_before
-    assert evictions > 0, "eviction never ran"
-    _assert_stream_close(ours, theirs)
-    n = core.state.lt_count
-    ov = core.state.lt_obj_valid[:, :n].numpy()
-    assert ov[0].any() and ov[1].any()
-
-
 @pytest.mark.parametrize("which", ["non_permanent", "sensory"])
 def test_clear_memory_matches_cutie_tpu(which, one_thread):
     """clear_non_permanent_memory / clear_sensory_memory in long-term mode,

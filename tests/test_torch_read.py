@@ -22,6 +22,8 @@ Tolerances:
   bf16 before its product; the port widens bf16 values to fp32 and keeps
   fp32 weights.
 """
+import contextlib
+
 import numpy as np
 import pytest
 
@@ -261,3 +263,89 @@ def test_read_wrapper_rejects_other_devices():
                                    for x in _inputs(0, 64, 8, 1))
     with pytest.raises(ValueError, match="unsupported device"):
         radix_topk_readout(mk, ms, valid, qk, qe, vals, K)
+
+
+# ------------------------------------------- the CUDA wrapper's host logic
+
+@pytest.mark.parametrize("n,p,budget", [
+    (8_100, 1_620, None),        # d17: one wave
+    (38_134, 2_546, None),       # lvos600: two waves
+    (1_000, 150, 4 * 1_000 * 64),  # P that the wave does not divide
+    (1_001, 150, 4 * 1_004 * 64 - 1),  # a budget under one tile: one tile
+])
+def test_read_waves_fit_the_workspace(n, p, budget):
+    from cutie_tpu_torch.ops import read_kernel as rk
+
+    budget = budget or rk.WORKSPACE_BYTES
+    waves = rk.radix_topk_readout_waves(n, p, budget)
+    assert rk.workspace_ld(n) % 4 == 0 and n <= rk.workspace_ld(n) < n + 4
+    assert [w[0] for w in waves] == list(range(0, p, waves[0][1]))
+    assert sum(w[1] for w in waves) == p
+    assert all(w[1] % rk.QUERY_TILE == 0 for w in waves[:-1])
+    assert 0 < waves[-1][1] <= waves[0][1]
+    row = 4 * rk.workspace_ld(n)
+    if waves[0][1] > rk.QUERY_TILE:
+        assert waves[0][1] * row <= budget
+    else:
+        assert waves[0][1] == min(p, rk.QUERY_TILE)
+    if len(waves) > 1:  # no larger multiple of the tile fits
+        assert (waves[0][1] + rk.QUERY_TILE) * row > budget
+    expect = {(8_100, 1_620): 1, (38_134, 2_546): 2, (1_000, 150): 3,
+              (1_001, 150): 3}[(n, p)]
+    assert len(waves) == expect
+
+
+class _FakeReadLibrary:
+    """Records the stage launches the wrapper makes (stage, first query,
+    queries, workspace row length); returns fail_with."""
+
+    def __init__(self, fail_with=0):
+        self.calls, self.fail_with = [], fail_with
+
+    def radix_topk_readout_similarity_launch(self, *args):
+        self.calls.append(("similarity", args[7], args[8], args[9]))
+        return self.fail_with
+
+    def radix_topk_readout_select_launch(self, *args):
+        self.calls.append(("select", args[14], args[15], args[1]))
+        return 0
+
+
+def test_read_wrapper_counts_one_launch_per_read(monkeypatch):
+    """Stage launches go wave by wave, similarity then select, and the read
+    counts once however many waves it takes; a failed launch raises and
+    counts nothing. The library and the device are stand-ins: the host
+    logic is what runs here."""
+    from cutie_tpu_torch.ops import read_kernel as rk
+
+    mk, ms, valid, qk, qe, vals = (torch.from_numpy(x)
+                                   for x in _inputs(0, 300, 150, 2))
+    lib = _FakeReadLibrary()
+    monkeypatch.setattr(rk, "KERNEL_DEVICE", "cpu")
+    monkeypatch.setattr(rk, "_library", lambda source: lib)
+    monkeypatch.setattr(rk, "_on_device", lambda dev: contextlib.nullcontext(0))
+    monkeypatch.setattr(rk, "WORKSPACE_BYTES", 4 * 300 * 64)
+    before = rk.radix_topk_readout.launches
+    out, usage, tau = rk.radix_topk_readout_cuda(mk, ms, valid, qk, qe, vals, K)
+    assert rk.radix_topk_readout.launches == before + 1
+    assert lib.calls == [(stage, p0, count, 300)  # rows of 300 keys
+                         for p0, count in ((0, 64), (64, 64), (128, 22))
+                         for stage in ("similarity", "select")]
+    assert out.shape == (2, 150, 64) and usage.shape == (300,) and tau.shape == (150,)
+
+    monkeypatch.setattr(rk, "_library", lambda source: _FakeReadLibrary(700))
+    with pytest.raises(RuntimeError, match="cudaError 700"):
+        rk.radix_topk_readout_cuda(mk, ms, valid, qk, qe, vals, K)
+    assert rk.radix_topk_readout.launches == before + 1
+
+
+def test_read_cuda_wrapper_raises_without_a_card():
+    """The CUDA entry point refuses CPU tensors rather than run the plain
+    version: the plain version runs only through radix_topk_readout."""
+    from cutie_tpu_torch.ops import read_kernel as rk
+
+    args = (torch.from_numpy(x) for x in _inputs(0, 64, 8, 1))
+    before = rk.radix_topk_readout.launches
+    with pytest.raises(ValueError, match="unsupported device cpu"):
+        rk.radix_topk_readout_cuda(*args, K)
+    assert rk.radix_topk_readout.launches == before
