@@ -26,7 +26,12 @@ Phases, each printing one JSON line with its wall seconds:
              and how many keys the select stage's pivot leaves; times, and
              each stage's time alone at d17 and lvos600;
   fused      the streaming kernel (fused_topk_readout) against the plain
-             version and against the read kernel: tau bit for bit;
+             version (tau 0 ulps) and against the read kernel (tau and
+             readout bit for bit): the TPU kernel tests' cases, copies of one
+             key across its split boundaries and past a split's top-k list,
+             top_k = 256 at the d17 shapes and 4096 (its state in global
+             memory), the d17 stream's and lvos600's inputs; times, and each
+             stage's time alone, on the last two;
   kernels    one line listing every ported kernel.
 The last line is {"ok": true, "device": {...}}. Any failure raises and the
 script exits non-zero. It needs a CUDA device and the repository around it.
@@ -120,7 +125,7 @@ def read_case(rng, *, p, caps, o, ck=64, cv=256, n_valid=None, pad_queries=0,
         case["mk"][dst] = case["mk"][src]
         case["ms"][dst] = case["ms"][src]
         case["valid"][dst] = case["valid"][src]
-        case["tie_tokens"] = (src, dst)
+        case["tie_tokens"] = [src, dst]
     if pad_queries:
         case["qk"] = torch.cat([case["qk"], torch.full((pad_queries, ck), 1e6, device=dev)])
         case["qe"] = torch.cat([case["qe"], torch.ones((pad_queries, ck), device=dev)])
@@ -181,6 +186,32 @@ def all_tied(case):
     return case
 
 
+def split_boundary_ties(rng, k=30):
+    """Copies of one key R across the streaming kernel's split boundaries
+    (at P = 256 and N = 8,100 it runs one 128-key tile a split on an H100):
+    one copy on each side of 12 boundaries, and 40 inside one split, more
+    than its top-k list holds. The first 16 queries are R and the next 16
+    R + 0.05 N(0, 1): for them tau is R's similarity, tied 64 times over
+    several splits, and every copy must be kept."""
+    n, p = 8_100, 256
+    case = read_case(rng, p=p, caps=(n,), o=2, cv=128)
+    k_tiles = -(-n // read_kernel.KEY_TILE)
+    _, splits, _ = read_kernel.fused_topk_readout_geometry(
+        n, p, k, read_kernel._sm_count(case["mk"].device))
+    first = [s * k_tiles // splits * read_kernel.KEY_TILE for s in range(splits)]
+    pos = sorted({f + d for f in first[8:20] for d in (-1, 0)}
+                 | set(range(first[3] + 10, first[3] + 50)))
+    idx = torch.tensor(pos, device=case["mk"].device)
+    r = case["mk"][pos[0]].clone()
+    case["mk"][idx] = r
+    case["ms"][idx] = case["ms"][pos[0]].clone()
+    case["qk"][:16] = r
+    case["qk"][16:32] = r + 0.05 * torch.from_numpy(
+        rng.normal(size=(16, r.numel())).astype(np.float32)).to(r.device)
+    case["tie_tokens"] = pos
+    return case
+
+
 def plain_similarity(case):
     return get_similarity(case["mk"][None], case["ms"][None], case["qk"][None],
                           case["qe"][None], valid=case["valid"][None])[0]
@@ -219,9 +250,10 @@ def compare(case, k, kernel=read_kernel.radix_topk_readout_cuda):
         res["padded_query_readout_max"] = pad_out
         ok = ok and pad_out == 0.0
     if "tie_tokens" in case:
-        src, dst = case["tie_tokens"]
-        res["tie_usage"] = [float(us[src]), float(us[dst])]
-        ok = ok and float(us[src]) > 0 and float(us[dst]) > 0
+        tie_usage = us[case["tie_tokens"]]
+        res["tie_tokens"] = len(case["tie_tokens"])
+        res["tie_usage_min"] = float(tie_usage.min())
+        ok = ok and res["tie_usage_min"] > 0
     return ok, res, (rd, us, tau)
 
 
@@ -414,14 +446,14 @@ def phase_env():
     return smi
 
 
-def phase_build(k=30):
+def phase_build():
     t0 = time.perf_counter()
     cuda_build.load_libraries([read_kernel.SOURCE, read_kernel.FUSED_SOURCE])
     occupancy = {
         "radix_topk_readout fp32 values": read_kernel.radix_topk_readout_occupancy(),
         "radix_topk_readout bf16 values":
             read_kernel.radix_topk_readout_occupancy(bf16=True),
-        f"fused_topk_readout k={k}": read_kernel.fused_topk_readout_occupancy(k)}
+        "fused_topk_readout": read_kernel.fused_topk_readout_occupancy()}
     emit({"phase": "build", "kernels": cuda_build.BUILD_LOG,
           "resident_blocks_per_sm": occupancy,
           "seconds": time.perf_counter() - t0})
@@ -594,31 +626,57 @@ def phase_kernel(lt_case, k=30):
     return dict(max_abs=max_abs, cases=cases, results=results)
 
 
+def fused_stage_times(case, k, splits):
+    """Each stage of the streaming kernel alone (CUDA events), and the
+    partial stage at other split counts than the geometry's `splits`: one
+    fewer, one more (a second round of blocks) and twice as many."""
+    args = {key: case[key] for key in ARGS}
+    args["values"] = torch.cat([v.float() for v in args["values"]], dim=1)
+    partial, merge = read_kernel.fused_topk_readout_stages(**args, top_k=k)
+    by_splits = {}
+    for s in sorted({max(1, splits - 1), splits + 1, 2 * splits}):
+        other, _ = read_kernel.fused_topk_readout_stages(**args, top_k=k, splits=s)
+        by_splits[s] = cuda_time_ms(other)
+    return {"partial_topk_ms": cuda_time_ms(partial),
+            "merge_readout_ms": cuda_time_ms(merge),
+            "partial_topk_ms_at_other_splits": by_splits}
+
+
 def phase_fused(stream_case, large_case, k=30):
-    """The streaming kernel against the plain version and the read kernel:
-    tau bit for bit equal to both on every query."""
+    """The streaming kernel against the plain version (tau 0 ulps) and the
+    read kernel (tau and readout bit for bit), each case at its top_k."""
     t0 = time.perf_counter()
     rng = np.random.default_rng(1)
+    hw = 30 * 54
     cases = {
         # tests/test_pallas_kernel.py:6-37 and :40-61
-        "700_of_1024_valid": read_case(rng, p=256, caps=(1024,), o=3, cv=128,
-                                       n_valid=700),
-        "fewer_valid_than_k": read_case(rng, p=128, caps=(256,), o=1, cv=128,
-                                        n_valid=5),
-        "tie_at_tau": read_case(rng, p=256, caps=(2000,), o=2, dup_tie=True),
-        "padded_queries": read_case(rng, p=100, caps=(3000,), o=2, pad_queries=28),
-        "d17_stream": stream_case,
-        "lvos600": large_case,
+        "700_of_1024_valid": (read_case(rng, p=256, caps=(1024,), o=3, cv=128,
+                                        n_valid=700), k),
+        "fewer_valid_than_k": (read_case(rng, p=128, caps=(256,), o=1, cv=128,
+                                         n_valid=5), k),
+        "tie_at_tau": (read_case(rng, p=256, caps=(2000,), o=2, dup_tie=True), k),
+        "padded_queries": (read_case(rng, p=100, caps=(3000,), o=2, pad_queries=28), k),
+        "split_boundary_ties": (split_boundary_ties(rng, k), k),
+        # state in global memory: top_k past what shared memory holds
+        "d17_top_k_256": (read_case(rng, p=hw, caps=(hw, 4 * hw), o=3), 256),
+        "top_k_4096": (read_case(rng, p=256, caps=(8100,), o=2), 4096),
+        "d17_stream": (stream_case, k),
+        "lvos600": (large_case, k),
     }
     results, all_ok, max_abs = {}, True, 0.0
-    for name, case in cases.items():
-        ok, res, (rd, _, tau) = compare(case, k, read_kernel.fused_topk_readout_cuda)
+    for name, (case, kc) in cases.items():
+        ok, res, (rd, _, tau) = compare(case, kc, read_kernel.fused_topk_readout_cuda)
         rd1, _, tau1 = read_kernel.radix_topk_readout_cuda(
-            **{key: case[key] for key in ARGS}, top_k=k)
+            **{key: case[key] for key in ARGS}, top_k=kc)
         torch.cuda.synchronize()
+        res["top_k"] = kc
+        res["splits"] = read_kernel.fused_topk_readout_geometry(
+            res["tokens"], res["queries"], kc,
+            read_kernel._sm_count(rd.device))[1]
         res["tau_max_ulps_vs_radix_kernel"] = int(ulps(tau, tau1).max())
-        res["readout_max_abs_vs_radix_kernel"] = float((rd - rd1).abs().max())
-        ok = ok and res["tau_max_ulps_vs_radix_kernel"] == 0
+        res["readout_bit_equal_to_radix_kernel"] = torch.equal(rd, rd1)
+        ok = (ok and res["tau_max_ulps_vs_radix_kernel"] == 0
+              and res["readout_bit_equal_to_radix_kernel"])
         if name in ("d17_stream", "lvos600"):
             args = {key: case[key] for key in ARGS}
             args["values"] = torch.cat([v.float() for v in args["values"]], dim=1)
@@ -632,6 +690,7 @@ def phase_fused(stream_case, large_case, k=30):
             _, usage = read_kernel.fused_topk_readout(**args, top_k=k)
             res["bound_ms"], res["bound_by"] = read_bound_ms(
                 tuple(args[key] for key in ARGS), usage, k)
+            res.update(fused_stage_times(case, k, res["splits"]))
         res["ok"] = ok
         results[name] = res
         all_ok &= ok
@@ -640,7 +699,7 @@ def phase_fused(stream_case, large_case, k=30):
           "seconds": time.perf_counter() - t0})
     if not all_ok:
         raise RuntimeError("fused_topk_readout disagrees")
-    return dict(max_abs=max_abs, **results["d17_stream"])
+    return dict(max_abs=max_abs, results=results, **results["d17_stream"])
 
 
 def main():
@@ -678,6 +737,12 @@ def main():
         "ms": fres["kernel_ms"], "plain_ms": fres["plain_ms"],
         "bound_ms": fres["bound_ms"], "bound_by": fres["bound_by"],
         "library_ms": None,
+        "stage_ms": {case: {key: fres["results"][case][key]
+                            for key in ("partial_topk_ms", "merge_readout_ms")}
+                     for case in ("d17_stream", "lvos600")},
+        "blocks_per_sm": occupancy["fused_topk_readout"],
+        "lvos600": {key: fres["results"]["lvos600"][key]
+                    for key in ("kernel_ms", "plain_ms", "bound_ms")},
     }]})
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0})
     print(smi, flush=True)

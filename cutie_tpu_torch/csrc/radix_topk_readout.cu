@@ -30,15 +30,14 @@
 // Design: two stages a wave of queries, through a workspace of order keys
 // [wave, ld] uint32 (ld = N rounded up to 4) in global memory. The wrapper
 // (ops/read_kernel.py) sizes the waves to its workspace budget.
-//   1. similarity_kernel: a block takes a tile of 64 queries and walks a run
-//      of 128-key tiles. Key tiles stream into shared memory through a
-//      two-stage cp.async ring; the query tile stays resident (for Ck > 64
-//      the channels go in chunks of 64, the query chunk reloaded per chunk).
-//      Each thread keeps a 4-query x 8-key register tile: 32 independent
-//      accumulation chains, and every 16-byte shared load feeds 4 or 8 pairs.
-//      The key bytes move from L2 once per query tile, not once per query.
-//      Tiles without a valid key (empty ring slots, free long-term slots) are
-//      not loaded or computed: their order keys are NEG_INF's.
+//   1. similarity_kernel: a block takes a tile of 64 queries and one run of
+//      up to 8 128-key tiles, through the loop both kernels share
+//      (read_common.cuh:similarity_run): key tiles stream into shared memory
+//      through a two-stage cp.async ring, each thread keeps a 4-query x 8-key
+//      register tile, and the key bytes move from L2 once per query tile, not
+//      once per query. Its epilogue writes the order keys to the workspace;
+//      tiles without a valid key (empty ring slots, free long-term slots) are
+//      not loaded or computed, and their order keys are NEG_INF's.
 //   2. select_readout_kernel: one block of 256 threads a query, over its row.
 //      a. A pivot: the k-th largest of the 256 threads' maxima over the row.
 //         At least k distinct keys are >= it, so tau >= pivot.
@@ -74,17 +73,6 @@ using namespace cutie_read;
 
 constexpr int kMaxSegs = 3;
 
-// stage 1 geometry: 16 x 16 threads, each 4 queries x 8 keys
-constexpr int kQTile = 64;
-constexpr int kKTile = 128;
-constexpr int kCChunk = 64;            // channels a shared tile holds
-constexpr int kLd = kCChunk + 4;       // row stride in floats: rows stay 16-byte
-                                       // aligned, 8 consecutive rows hit 8
-                                       // distinct 4-bank groups
-constexpr int kMaxTilesPerBlock = 8;
-constexpr size_t kSimSmemBytes =
-    (size_t)(2 * kQTile + 2 * kKTile) * kLd * sizeof(float);
-
 // stage 2 capacities (shared memory)
 constexpr int kCandCap = 2048;
 constexpr int kListCap = 1024;
@@ -105,70 +93,20 @@ __device__ __forceinline__ float load_value(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all_but_newest() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
 // ------------------------------------------------------------ stage 1
 
-// Order keys of sim[p0 + q, key] for the wave's queries q in [0, p_count),
-// into ws[q * ld + key]. Grid: x runs of tiles_per_block key tiles, y query
-// tiles.
-__global__ void __launch_bounds__(kThreads, 2)
-similarity_kernel(const float* __restrict__ mk, const float* __restrict__ ms,
-                  const uint8_t* __restrict__ valid,
-                  const float* __restrict__ qk, const float* __restrict__ qe,
-                  int n, int ck, int p0, int p_count, int tiles_per_block,
-                  int ld, uint32_t* __restrict__ ws) {
-  extern __shared__ __align__(16) float smem_f[];
-  float* q_s = smem_f;                   // [kQTile][kLd]
-  float* e_s = q_s + kQTile * kLd;       // [kQTile][kLd]
-  float* k_s = e_s + kQTile * kLd;       // [2][kKTile][kLd]
-  __shared__ int s_flag[kMaxTilesPerBlock];
-  __shared__ int s_tiles[kMaxTilesPerBlock];
-  __shared__ int s_ntiles;
-
-  const int tid = threadIdx.x, tq = tid >> 4, tk = tid & 15;
-  const int q_lo = blockIdx.y * kQTile;
-  const int q_hi = min(p_count, q_lo + kQTile);
-  const int key_lo = blockIdx.x * tiles_per_block * kKTile;
-  const int key_hi = min(n, key_lo + tiles_per_block * kKTile);
-  const int n_tiles = (key_hi - key_lo + kKTile - 1) / kKTile;
-  const int nch = (ck + kCChunk - 1) / kCChunk;
-  const float nis = neg_inv_sqrt(ck);
-  const uint32_t neg_key = order_key(kNegInf);
-
-  // which of this block's tiles hold a valid key
-  if (tid < kMaxTilesPerBlock) s_flag[tid] = 0;
-  __syncthreads();
-  for (int i = key_lo + tid; i < key_hi; i += kThreads)
-    if (valid[i]) s_flag[(i - key_lo) / kKTile] = 1;
-  __syncthreads();
-  if (tid == 0) {
-    int m = 0;
-    for (int t = 0; t < n_tiles; ++t)
-      if (s_flag[t]) s_tiles[m++] = t;
-    s_ntiles = m;
-  }
-  __syncthreads();
-
-  // tiles without a valid key: NEG_INF, no loads, no arithmetic
-  for (int t = 0; t < n_tiles; ++t) {
-    if (s_flag[t]) continue;
-    const int k0 = key_lo + t * kKTile;
+// Writes the order keys of one query tile's rows to the workspace.
+struct WorkspaceEpilogue {
+  static constexpr bool kStaged = false;
+  uint32_t* ws;  // row 0 = the tile's first query
+  int ld, n, q_count;
+  __device__ __forceinline__ void empty_tile(int k0) const {
+    const int tq = threadIdx.x >> 4, tk = threadIdx.x & 15;
+    const uint32_t neg_key = order_key(kNegInf);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int q = q_lo + tq * 4 + i;
-      if (q >= q_hi) continue;
-      uint32_t* dst = ws + (size_t)q * ld;
+      if (tq * 4 + i >= q_count) continue;
+      uint32_t* dst = ws + (size_t)(tq * 4 + i) * ld;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int key = k0 + tk + 16 * j;
@@ -176,109 +114,36 @@ similarity_kernel(const float* __restrict__ mk, const float* __restrict__ ms,
       }
     }
   }
-
-  auto load_qe = [&](int h) {
-    const int c0 = h * kCChunk, cw4 = min(kCChunk, ck - c0) / 4;
-    for (int e = tid; e < kQTile * cw4; e += kThreads) {
-      const int r = e / cw4, c4 = e - r * cw4, q = q_lo + r;
-      if (q < q_hi) {
-        const size_t g = (size_t)(p0 + q) * ck + c0 + 4 * c4;
-        cp_async16(q_s + r * kLd + 4 * c4, qk + g);
-        cp_async16(e_s + r * kLd + 4 * c4, qe + g);
-      }
-    }
-  };
-  auto load_k = [&](int stage, int buf) {
-    const int t = s_tiles[stage / nch], h = stage % nch;
-    const int c0 = h * kCChunk, cw4 = min(kCChunk, ck - c0) / 4;
-    const int k0 = key_lo + t * kKTile;
-    float* dst = k_s + buf * kKTile * kLd;
-    for (int e = tid; e < kKTile * cw4; e += kThreads) {
-      const int r = e / cw4, c4 = e - r * cw4, key = k0 + r;
-      if (key < n)
-        cp_async16(dst + r * kLd + 4 * c4, mk + (size_t)key * ck + c0 + 4 * c4);
-    }
-  };
-
-  // the ring: stage s = (valid tile s / nch, channel chunk s % nch). Rows
-  // past N and queries past the wave are not loaded; their accumulators are
-  // never stored.
-  const int n_stages = s_ntiles * nch;
-  if (nch == 1) load_qe(0);
-  if (n_stages > 0) load_k(0, 0);
-  cp_async_commit();
-  float acc[4][8];
-  for (int s = 0; s < n_stages; ++s) {
-    const int h = s % nch;
-    if (nch > 1) load_qe(h);  // the previous stage's readers are past the barrier
-    cp_async_commit();
-    if (s + 1 < n_stages) load_k(s + 1, (s + 1) & 1);
-    cp_async_commit();
-    cp_async_wait_all_but_newest();  // this stage's key (and query) chunk
-    __syncthreads();
-    if (h == 0) {
+  __device__ __forceinline__ void row(int q, int k0, const uint32_t* key,
+                                      uint32_t*) const {
+    const int tk = threadIdx.x & 15;
+    uint32_t* dst = ws + (size_t)q * ld;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-    }
-    const float* kb = k_s + (s & 1) * kKTile * kLd;
-    const int cw = min(kCChunk, ck - h * kCChunk);
-#pragma unroll 2
-    for (int c = 0; c < cw; c += 4) {
-      float4 q4[4], e4[4], m4[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        q4[i] = *reinterpret_cast<const float4*>(q_s + (tq * 4 + i) * kLd + c);
-        e4[i] = *reinterpret_cast<const float4*>(e_s + (tq * 4 + i) * kLd + c);
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        m4[j] = *reinterpret_cast<const float4*>(kb + (tk + 16 * j) * kLd + c);
-      // channels c, c+1, c+2, c+3 in order on every chain
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = sim_term(acc[i][j], m4[j].x, q4[i].x, e4[i].x);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = sim_term(acc[i][j], m4[j].y, q4[i].y, e4[i].y);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = sim_term(acc[i][j], m4[j].z, q4[i].z, e4[i].z);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = sim_term(acc[i][j], m4[j].w, q4[i].w, e4[i].w);
-    }
-    if (h == nch - 1) {  // the tile's last chunk: apply ms and -1/sqrt(Ck)
-      const int k0 = key_lo + s_tiles[s / nch] * kKTile;
-      float shr[8];
-      bool ok[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int key = k0 + tk + 16 * j;
-        ok[j] = key < n && valid[key];
-        shr[j] = ok[j] ? ms[key] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int q = q_lo + tq * 4 + i;
-        if (q >= q_hi) continue;
-        uint32_t* dst = ws + (size_t)q * ld;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int key = k0 + tk + 16 * j;
-          if (key < n)
-            dst[key] = ok[j] ? order_key(__fmul_rn(__fmul_rn(acc[i][j], shr[j]), nis))
-                             : neg_key;
-        }
-      }
-    }
-    __syncthreads();  // both buffers free for the next loads
+    for (int j = 0; j < 8; ++j)
+      if (k0 + tk + 16 * j < n) dst[k0 + tk + 16 * j] = key[j];
   }
+  __device__ __forceinline__ void tile_done(int, uint32_t*) const {}
+};
+
+// Order keys of sim[p0 + q, key] for the wave's queries q in [0, p_count),
+// into ws[q * ld + key]: read_common.cuh:similarity_run over one run of
+// tiles_per_block key tiles a block. Grid: x runs, y query tiles.
+__global__ void __launch_bounds__(kThreads, 2)
+similarity_kernel(const float* __restrict__ mk, const float* __restrict__ ms,
+                  const uint8_t* __restrict__ valid,
+                  const float* __restrict__ qk, const float* __restrict__ qe,
+                  int n, int ck, int p0, int p_count, int tiles_per_block,
+                  int ld, uint32_t* __restrict__ ws) {
+  extern __shared__ __align__(16) float smem_f[];
+  __shared__ TileRunShared sh;
+  const int q_lo = blockIdx.y * kQTile;
+  const int key_lo = blockIdx.x * tiles_per_block * kKTile;
+  const int n_tiles = (min(n, key_lo + tiles_per_block * kKTile) - key_lo +
+                       kKTile - 1) / kKTile;
+  const int q_count = min(kQTile, p_count - q_lo);
+  WorkspaceEpilogue epi{ws + (size_t)q_lo * ld, ld, n, q_count};
+  similarity_run(mk, ms, valid, qk, qe, n, ck, p0 + q_lo, q_count, key_lo,
+                 n_tiles, 1, smem_f, sh, epi);
 }
 
 // ------------------------------------------------------------ stage 2
@@ -526,7 +391,7 @@ int radix_topk_readout_similarity_launch(const void* mk, const void* ms,
   // runs of tiles long enough to use the ring, short enough to leave about
   // four rounds of two blocks an SM
   const int per_block =
-      max(1, min(kMaxTilesPerBlock, k_tiles * q_tiles / (8 * sms)));
+      max(1, min(kMaxTilesPerRun, k_tiles * q_tiles / (8 * sms)));
   const dim3 grid((k_tiles + per_block - 1) / per_block, q_tiles);
   similarity_kernel<<<grid, kThreads, kSimSmemBytes,
                       static_cast<cudaStream_t>(stream)>>>(

@@ -48,8 +48,20 @@ WORKSPACE_BYTES = 1 << 28
 QUERY_TILE = 64
 # the device type the kernels launch on
 KERNEL_DEVICE = "cuda"
-# fused_topk_readout keeps O(top_k) keys a query in shared memory
+# fused_topk_readout takes top_k up to this; its state is O(top_k) pairs a
+# query and split of the keys, whatever N is
 FUSED_MAX_TOP_K = 4096
+# a (query, split) row of its state is the partial stage's buffer of
+# (order key, token) pairs: top_k and one step's appends (32 keys), and at
+# least FUSED_MIN_LD, so that merges stay rare
+FUSED_STEP = 32
+FUSED_MIN_LD = 176
+# the partial stage's resident blocks an SM, which set its split count
+# (fused_topk_readout_geometry); its state stays within FUSED_STATE_BYTES
+FUSED_BLOCKS_PER_SM = 2
+FUSED_STATE_BYTES = 1 << 26
+KEY_TILE = 128
+H100_SMS = 132
 
 Values = Union[torch.Tensor, Sequence[torch.Tensor]]
 
@@ -86,8 +98,11 @@ def _library(source: str) -> ctypes.CDLL:
                     [vp, i] + [vp] * 3 + [ll] * 6 + [i] * 9 + [vp] * 4,
                     "radix_topk_readout_occupancy": [i, ip, ip]}
         else:
-            sigs = {"fused_topk_readout_launch": [vp] * 6 + [i] * 6 + [vp] * 4,
-                    "fused_topk_readout_occupancy": [i, ip]}
+            sigs = {"fused_topk_readout_partial_launch":
+                    [vp] * 5 + [i] * 6 + [vp] * 4,
+                    "fused_topk_readout_merge_launch":
+                    [vp] * 6 + [i] * 8 + [vp] * 7,
+                    "fused_topk_readout_occupancy": [ip, ip]}
         for name, argtypes in sigs.items():  # every function returns an int
             getattr(lib, name).argtypes = argtypes
             getattr(lib, name).restype = ctypes.c_int
@@ -329,48 +344,123 @@ def fused_topk_readout(mk: torch.Tensor, ms: torch.Tensor, valid: torch.Tensor,
     return fused_topk_readout_cuda(mk, ms, valid, qk, qe, values, top_k)[:2]
 
 
-def fused_topk_readout_occupancy(top_k: int, device=None) -> int:
-    """Resident blocks per SM at this top_k."""
-    blocks = ctypes.c_int(0)
+def fused_topk_readout_geometry(n: int, p: int, top_k: int,
+                                sms: int = H100_SMS):
+    """(query_tile, splits, state_bytes) of one streaming read. The partial
+    stage runs (query tiles x splits) blocks of QUERY_TILE queries, split s
+    taking key tiles s, s + splits, ... of the ceil(n / 128). As many
+    splits as one round of resident blocks holds (FUSED_BLOCKS_PER_SM an
+    SM): a block more would start a second round as long as the first.
+    Every split holds a key tile, and the state holds, for each query and
+    split, `fused_state_ld` (order key, token) pairs of 8 bytes and one
+    4-byte drop key, at most FUSED_STATE_BYTES: it is sized from p, top_k
+    and the split count, which depends on n only while n holds fewer key
+    tiles than one round has blocks a query tile."""
+    _check(1 <= top_k <= FUSED_MAX_TOP_K,
+           f"top_k={top_k} must be in 1..{FUSED_MAX_TOP_K}", "fused_topk_readout")
+    _check(n >= 1 and p >= 1, "need at least one key and one query",
+           "fused_topk_readout")
+    q_tiles = -(-p // QUERY_TILE)
+    k_tiles = -(-n // KEY_TILE)
+    row = p * (8 * fused_state_ld(top_k) + 4)  # bytes of one split
+    round_ = FUSED_BLOCKS_PER_SM * sms // q_tiles
+    splits = max(1, min(k_tiles, round_, FUSED_STATE_BYTES // row))
+    return QUERY_TILE, splits, splits * row
+
+
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def fused_state_ld(top_k: int) -> int:
+    """Pairs a (query, split) row of the streaming read's state holds."""
+    return max(top_k + FUSED_STEP, FUSED_MIN_LD)
+
+
+def fused_topk_readout_occupancy(device=None) -> dict:
+    """Resident blocks per SM of each stage (the same at every top_k)."""
+    part, merge = ctypes.c_int(0), ctypes.c_int(0)
     with torch.cuda.device(device):
         err = _library(FUSED_SOURCE).fused_topk_readout_occupancy(
-            int(top_k), ctypes.byref(blocks))
-    if err != 0:
-        raise RuntimeError(f"fused_topk_readout occupancy query: cudaError {err}")
-    return blocks.value
+            ctypes.byref(part), ctypes.byref(merge))
+    _raise_on(err, "fused_topk_readout occupancy query")
+    return {"partial_topk": part.value, "merge_readout": merge.value}
 
 
 def fused_topk_readout_cuda(mk: torch.Tensor, ms: torch.Tensor,
                             valid: torch.Tensor, qk: torch.Tensor,
                             qe: torch.Tensor, values: torch.Tensor, top_k: int):
     """Launch the streaming kernel on CUDA tensors (arguments as
-    fused_topk_readout) and count one launch in
-    `fused_topk_readout.launches`. Returns (readout, usage, tau [P] fp32).
-    Raises on anything the kernel does not take."""
-    name = "fused_topk_readout"
-    n, ck, p = _check_keys(name, mk, ms, valid, qk, qe, top_k)
-    _check(torch.is_tensor(values) and values.dim() == 3
-           and values.shape[1] == n and values.device == mk.device,
-           "values must be one [O, N, Cv] tensor on mk's device", name)
-    _check(top_k <= FUSED_MAX_TOP_K, f"top_k={top_k} > {FUSED_MAX_TOP_K}", name)
-    v = values.float().contiguous()
-    o, _, cv = v.shape
-    dev = mk.device
-    lib = _library(FUSED_SOURCE)
-    out = torch.empty((o, p, cv), dtype=torch.float32, device=dev)
-    usage = torch.zeros((n,), dtype=torch.float32, device=dev)
-    tau = torch.empty((p,), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fused_topk_readout_launch(
-            mk.data_ptr(), ms.data_ptr(), valid.data_ptr(), qk.data_ptr(),
-            qe.data_ptr(), v.data_ptr(), n, p, ck, o, cv, int(top_k),
-            out.data_ptr(), usage.data_ptr(), tau.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"fused_topk_readout kernel launch failed: "
-                           f"cudaError {err}")
+    fused_topk_readout): the partial top-k stage, then the merge and
+    readout stage, through a state of fused_topk_readout_geometry's size.
+    Counts one launch per read in `fused_topk_readout.launches`. Returns
+    (readout, usage, tau [P] fp32). Raises on anything the kernel does not
+    take."""
+    run = _FusedRun(mk, ms, valid, qk, qe, values, top_k)
+    with _on_device(mk.device) as stream:
+        run.partial(stream)
+        run.merge(stream)
     fused_topk_readout.launches += 1
-    return out, usage, tau
+    return run.out, run.usage, run.tau
+
+
+class _FusedRun:
+    """One streaming read's outputs, state and launch arguments."""
+
+    def __init__(self, mk, ms, valid, qk, qe, values, top_k, splits=None):
+        name = "fused_topk_readout"
+        n, ck, p = _check_keys(name, mk, ms, valid, qk, qe, top_k)
+        _check(torch.is_tensor(values) and values.dim() == 3
+               and values.shape[1] == n and values.device == mk.device,
+               "values must be one [O, N, Cv] tensor on mk's device", name)
+        dev = mk.device
+        self.splits = splits or fused_topk_readout_geometry(
+            n, p, top_k, _sm_count(dev))[1]
+        self.ld = fused_state_ld(top_k)
+        self.v = values.float().contiguous()
+        o, _, cv = self.v.shape
+        self.keys = (mk, ms, valid, _aligned(qk), _aligned(qe))
+        self.shape = (n, ck, p, o, cv, int(top_k))
+        self.lib = _library(FUSED_SOURCE)
+        pairs = (p, self.splits, self.ld)
+        self.st_keys = torch.empty(pairs, dtype=torch.int32, device=dev)
+        self.st_idx = torch.empty(pairs, dtype=torch.int32, device=dev)
+        self.st_drop = torch.empty((p, self.splits), dtype=torch.int32, device=dev)
+        self.out = torch.empty((o, p, cv), dtype=torch.float32, device=dev)
+        self.usage = torch.zeros((n,), dtype=torch.float32, device=dev)
+        self.tau = torch.empty((p,), dtype=torch.float32, device=dev)
+        self.state = [t.data_ptr() for t in (self.st_keys, self.st_idx, self.st_drop)]
+
+    def partial(self, stream):
+        n, ck, p, _, _, top_k = self.shape
+        _raise_on(self.lib.fused_topk_readout_partial_launch(
+            *(t.data_ptr() for t in self.keys), n, ck, p, top_k, self.splits,
+            self.ld, *self.state, stream), "fused_topk_readout partial launch")
+
+    def merge(self, stream):
+        _raise_on(self.lib.fused_topk_readout_merge_launch(
+            *(t.data_ptr() for t in self.keys), self.v.data_ptr(), *self.shape,
+            self.splits, self.ld, *self.state, self.out.data_ptr(),
+            self.usage.data_ptr(), self.tau.data_ptr(), stream),
+            "fused_topk_readout merge launch")
+
+
+def fused_topk_readout_stages(mk, ms, valid, qk, qe, values, top_k,
+                              splits: Optional[int] = None):
+    """The streaming kernel's two stages as separate callables, for timing
+    each alone: (partial_topk, merge_readout), with the geometry's split
+    count or `splits`. Run partial_topk first; merge_readout reads the state
+    it filled (usage accumulates over repeated calls). Launches made through
+    them are not counted."""
+    run = _FusedRun(mk, ms, valid, qk, qe, values, top_k, splits)
+
+    def stage(fn):
+        def launch():
+            with _on_device(mk.device) as stream:
+                fn(stream)
+        return launch
+
+    return stage(run.partial), stage(run.merge)
 
 
 fused_topk_readout.launches = 0
