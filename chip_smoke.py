@@ -11,10 +11,24 @@ Phases, each printing one JSON line with its wall seconds:
              trained test weights, 12 frames of the synthetic 480x854
              three-object video, held to the recorded reference masks; the
              read kernel must have been launched there, and it is held to its
-             plain version again on the stream's own read inputs;
+             plain version again on the stream's own read inputs; then the
+             kernel time a frame of 4 more frames under torch.profiler;
   lt_stream  the long-term path: the same in long-term mode over the 26
              frames of the long-term golden, with consolidation and reads
              over three value segments (perm | lt | work);
+  resize_stream  max_internal_size = 480 on 960x1708 frames, held to
+             stream480_resize_trained.npz at 960x1708;
+  flip_stream    flip_aug, two kernel #1 launches (batch rows) a read frame,
+             held to stream480_flip_trained.npz;
+  adddel_stream  object 3 added at frame 4 (a second bucket), object 2
+             deleted before frame 8, held to stream480_adddel_trained.npz;
+  amp_stream the stream phase's run with amp = True, held to the fp32
+             golden; each model stage's output dtype as cutie_tpu's; kernel
+             #1 on bf16 values against its plain version on the stream's
+             own read inputs; amp and fp32 frame and kernel times;
+  config     update_config mid-stream: the working memory grown and top_k
+             changed, and the long-term ring shrunk until update_config
+             consolidates it; state on the card and buffers resized;
   kernel     the read kernel against its plain version on the card: random
              cases at the working-memory shapes and edge cases, and the
              long-term sizes of the lvos-val presets built from the
@@ -36,6 +50,8 @@ Phases, each printing one JSON line with its wall seconds:
 The last line is {"ok": true, "device": {...}}. Any failure raises and the
 script exits non-zero. It needs a CUDA device and the repository around it.
 """
+import dataclasses
+import functools
 import json
 import subprocess
 import time
@@ -43,13 +59,16 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
 
 from cutie_tpu_torch.config import eval_config
 from cutie_tpu_torch.inference import InferenceCore
 from cutie_tpu_torch.ops import cuda_build, read_kernel
 from cutie_tpu_torch.ops.memory import _float_order_key, get_similarity, topk_threshold
-from cutie_tpu_torch.utils.get_default_model import build_model, set_fp32_precision
-from cutie_tpu_torch.utils.synth_video import synth_frames_480
+from cutie_tpu_torch.ops.resize import bilinear_resize
+from cutie_tpu_torch.utils.get_default_model import (build_model, load_torch_npz,
+                                                     set_fp32_precision)
+from cutie_tpu_torch.utils.synth_video import synth_frames_480, synth_gt_masks_480
 
 REPO = Path(__file__).resolve().parent
 GOLDEN = REPO / "tests" / "golden"
@@ -399,35 +418,92 @@ def wave_boundary(case, k, result):
     return res
 
 
-def stream_ious(core, probs, masks, size):
+def stream_ious(id_maps, masks):
+    """Per-frame IoU of objects 1, 2 and 3 in the port's object-id maps
+    against the golden's, as tools/report_parity_480p.py:_obj_ious computes
+    it (an object in neither map counts 1.0)."""
     ious = []
-    for ti, prob in enumerate(probs):
-        if not (bool(torch.isfinite(prob).all()) and prob.shape == (4,) + size):
-            raise RuntimeError(f"frame {ti}: bad output {tuple(prob.shape)}")
-        m = core.output_prob_to_mask(prob)
+    for m, ref in zip(id_maps, masks):
         for obj in (1, 2, 3):
-            a, b = m == obj, masks[ti] == obj
+            a, b = m == obj, ref == obj
             union = np.logical_or(a, b).sum()
             ious.append(float(np.logical_and(a, b).sum() / union) if union else 1.0)
     return np.asarray(ious)
 
 
-def run_stream(core, frames, mask0):
-    """Step the core through every frame, synchronised per frame; returns
-    (probs, frame_ms, read launches during the run)."""
+def first_mask_step(mask0):
+    """run_stream's step: objects 1, 2 and 3 from mask0 on frame 0."""
+    def step(core, ti, frame):
+        return (core.step(frame, mask0, objects=[1, 2, 3]) if ti == 0
+                else core.step(frame))
+    return step
+
+
+def run_stream(core, frames, step, size):
+    """Step the core through every frame with step(core, ti, frame),
+    synchronised per frame. Each output must be finite probabilities of
+    shape (objects + 1,) + size. Returns (object-id maps, frame_ms, read
+    launches during the run, kernel #1's launches in each frame)."""
     read_kernel.radix_topk_readout.launches = 0
     read_kernel.fused_topk_readout.launches = 0
-    probs, frame_ms = [], []
+    id_maps, frame_ms, per_frame = [], [], []
     for ti in range(frames.shape[0]):
+        before = read_kernel.radix_topk_readout.launches
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        probs.append(core.step(frames[ti], mask0, objects=[1, 2, 3]) if ti == 0
-                     else core.step(frames[ti]))
+        prob = step(core, ti, frames[ti])
         torch.cuda.synchronize()
         frame_ms.append(1e3 * (time.perf_counter() - t1))
+        per_frame.append(read_kernel.radix_topk_readout.launches - before)
+        shape = (core.object_manager.num_obj + 1,) + tuple(size)
+        if not (tuple(prob.shape) == shape and valid_probabilities(prob)):
+            raise RuntimeError(f"frame {ti}: bad output {tuple(prob.shape)}, "
+                               f"expected {shape}")
+        id_maps.append(core.output_prob_to_mask(prob))
     launches = {"radix_topk_readout": read_kernel.radix_topk_readout.launches,
                 "fused_topk_readout": read_kernel.fused_topk_readout.launches}
-    return probs, frame_ms, launches
+    return id_maps, frame_ms, launches, per_frame
+
+
+def valid_probabilities(prob):
+    """Finite, in [0, 1], summing to 1 over the channels."""
+    return bool(torch.isfinite(prob).all() and prob.min() >= 0 and prob.max() <= 1
+                and (prob.sum(0) - 1).abs().max() < 1e-3)
+
+
+def fps_steady(frame_ms):
+    """Frames per second over frames 3 to the last: frame 2 is the first
+    plain frame and carries the one-time lazy loading of the CUDA and
+    cuDNN kernels its shapes need."""
+    return (len(frame_ms) - 2) / (1e-3 * sum(frame_ms[2:]))
+
+
+def iou_ok(ious):
+    return float(np.median(ious)) > IOU_MEDIAN and float(ious.min()) > IOU_MIN
+
+
+def last_read_case(core, frame):
+    """The read inputs of the frame after the stream's last, over the
+    memory the stream built (batch row 0, the first bucket), at the
+    internal size."""
+    image = torch.from_numpy(frame).cuda()
+    image = bilinear_resize(image, *core.internal_size(*image.shape[-2:]))
+    feats = core.steps.encode(image, pad=core.pad)
+    return dict(zip(ARGS, core.steps.read_inputs(core.state, feats, rep=0, row=0)))
+
+
+def kernel_ms_per_frame(core, frames, first):
+    """Kernel time a frame (torch.profiler's device time, all kernels) over
+    frames[first:], continuing the stream; None where the profiler records
+    no device time."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for ti in range(first, frames.shape[0]):
+            core.step(frames[ti])
+        torch.cuda.synchronize()
+    us = sum(getattr(ev, "self_device_time_total", 0) for ev in prof.key_averages()
+             if getattr(ev, "device_type", None) == DeviceType.CUDA)
+    return us / 1e3 / (frames.shape[0] - first) if us > 0 else None
 
 
 # ------------------------------------------------------------------ phases
@@ -460,32 +536,54 @@ def phase_build():
     return occupancy
 
 
-def phase_stream(k=30):
-    t0 = time.perf_counter()
+@functools.cache
+def trained_weights():
+    return load_torch_npz(str(GOLDEN / "state_dict_base_trained.npz"))
+
+
+def base_core(**settings):
+    """cutie-base on the trained test weights on the card, at the settings
+    the 480p goldens were recorded with (tools/report_parity_480p.py:55-63:
+    d17 working memory), updated with `settings`; TF32 off."""
     set_fp32_precision()
     cfg = eval_config("base")
-    # tools/report_parity_480p.py:55-63, the settings the goldens were made with
-    cfg.merge({"mem_every": 5, "top_k": k, "stagger_updates": 5,
-               "max_mem_frames": 5, "use_long_term": False, "flip_aug": False})
-    model = build_model(cfg, str(GOLDEN / "state_dict_base_trained.npz"), device="cuda")
-    rec = np.load(GOLDEN / "stream480_work_trained.npz")
-    t = int(rec["t"])
-    frames, mask0 = synth_frames_480(t)
+    cfg.merge({"mem_every": 5, "top_k": 30, "stagger_updates": 5,
+               "max_mem_frames": 5, "use_long_term": False, "flip_aug": False,
+               "max_internal_size": -1})
+    cfg.merge(settings)
+    return InferenceCore(build_model(cfg, device="cuda",
+                                     state_dict=trained_weights()), cfg)
+
+
+def golden_video(name, h=480, w=854, extra_frames=0, objects0=(1, 2, 3)):
+    """A 480p golden and the synthetic video it was recorded on (with
+    extra_frames more frames after its own); the first mask holds objects0."""
+    rec = np.load(GOLDEN / name)
+    frames, mask0 = synth_frames_480(int(rec["t"]) + extra_frames, h, w)
+    mask0 = np.where(np.isin(mask0, objects0), mask0, 0)
     if not (mask0 == rec["mask0"]).all():
-        raise RuntimeError("synthetic video differs from the golden's first mask")
-    core = InferenceCore(model, cfg)
-    probs, frame_ms, launches = run_stream(core, frames, mask0)
+        raise RuntimeError(f"synthetic video differs from {name}'s first mask")
+    return rec, frames, mask0
+
+
+PROFILED_FRAMES = 4   # frames traced after a stream for its kernel time
+
+
+def phase_stream(k=30):
+    t0 = time.perf_counter()
+    core = base_core(top_k=k)
+    rec, frames, mask0 = golden_video("stream480_work_trained.npz",
+                                      extra_frames=PROFILED_FRAMES)
+    t = int(rec["t"])
+    id_maps, frame_ms, launches, _ = run_stream(
+        core, frames[:t], first_mask_step(mask0), (480, 854))
     fps = (t - 1) / (1e-3 * sum(frame_ms[1:]))
-    # frame 2 is the first plain frame: it carries the one-time lazy loading
-    # of the CUDA/cuDNN kernels its shapes need
-    fps_steady = (t - 2) / (1e-3 * sum(frame_ms[2:]))
-    ious = stream_ious(core, probs, rec["masks"], (480, 854))
+    ious = stream_ious(id_maps, rec["masks"])
 
     # the kernel against its plain version on the stream's own read inputs
     # (the next frame's read over the memory the stream built)
-    feats = core.steps.encode(torch.from_numpy(frames[-1]).cuda(), pad=core.pad)
-    args = core.steps.read_inputs(core.state, feats, rep=0, row=0)
-    case = dict(zip(ARGS, args))
+    case = last_read_case(core, frames[t - 1])
+    args = tuple(case[key] for key in ARGS)
     ok_read, res, _ = compare(case, k)
     times = timed_case(case, k)
     # the fp32 similarity against the same direct form in fp64, at the tokens
@@ -501,12 +599,14 @@ def phase_stream(k=30):
     sim_ulps = int(ulps(sim32, sim64.float())[kept].max())
     sim_ok = sim_ulps <= qk.shape[1] + 8
 
-    ok = (launches["radix_topk_readout"] > 0 and float(np.median(ious)) > IOU_MEDIAN
-          and float(ious.min()) > IOU_MIN and ok_read and sim_ok)
+    ok = (launches["radix_topk_readout"] > 0 and iou_ok(ious) and ok_read
+          and sim_ok)
+    kernel_ms = kernel_ms_per_frame(core, frames, t)
     emit({"phase": "stream", "frames": t, "objects": 3, "size": [480, 854],
           "tokens": int(args[0].shape[0]), "queries": int(args[3].shape[0]),
           "launches": launches, "fps_frames_2_to_12": fps,
-          "fps_frames_3_to_12": fps_steady,
+          "fps_frames_3_to_12": fps_steady(frame_ms),
+          "kernel_ms_per_frame_13_to_16": kernel_ms,
           "frame_ms": frame_ms, **times,
           "sim_fp32_ulps_vs_fp64_at_kept_tokens": sim_ulps,
           "iou_median": float(np.median(ious)), "iou_min": float(ious.min()),
@@ -515,47 +615,41 @@ def phase_stream(k=30):
     if not ok:
         raise RuntimeError("stream phase failed")
     return dict(launches=launches, max_abs=res["readout_max_abs"], case=case,
-                **times)
+                fps=fps_steady(frame_ms), kernel_ms_per_frame=kernel_ms, **times)
+
+
+# tools/gen_golden.py:stream480_cfg(True), the settings the long-term golden
+# was recorded with
+LT_SETTINGS = {"use_long_term": True,
+               "long_term": {"count_usage": True, "max_mem_frames": 4,
+                             "min_mem_frames": 2, "num_prototypes": 64,
+                             "max_num_tokens": 4000, "buffer_tokens": 1000}}
 
 
 def phase_lt_stream(k=30):
     t0 = time.perf_counter()
-    cfg = eval_config("base")
-    # tools/gen_golden.py:stream480_cfg(True), the settings the long-term
-    # golden was recorded with
-    cfg.merge({"mem_every": 5, "top_k": k, "stagger_updates": 5,
-               "max_mem_frames": 5, "use_long_term": True, "flip_aug": False,
-               "long_term": {"count_usage": True, "max_mem_frames": 4,
-                             "min_mem_frames": 2, "num_prototypes": 64,
-                             "max_num_tokens": 4000, "buffer_tokens": 1000}})
-    model = build_model(cfg, str(GOLDEN / "state_dict_base_trained.npz"), device="cuda")
-    rec = np.load(GOLDEN / "stream480_lt_trained.npz")
+    core = base_core(top_k=k, **LT_SETTINGS)
+    rec, frames, mask0 = golden_video("stream480_lt_trained.npz")
     t = int(rec["t"])
-    frames, mask0 = synth_frames_480(t)
-    if not (mask0 == rec["mask0"]).all():
-        raise RuntimeError("synthetic video differs from the golden's first mask")
-    core = InferenceCore(model, cfg)
-    probs, frame_ms, launches = run_stream(core, frames, mask0)
-    fps_steady = (t - 2) / (1e-3 * sum(frame_ms[2:]))
-    ious = stream_ious(core, probs, rec["masks"], (480, 854))
+    id_maps, frame_ms, launches, _ = run_stream(
+        core, frames, first_mask_step(mask0), (480, 854))
+    ious = stream_ious(id_maps, rec["masks"])
 
     # the read inputs of the frame after the last: perm | lt | work
-    feats = core.steps.encode(torch.from_numpy(frames[-1]).cuda(), pad=core.pad)
-    args = core.steps.read_inputs(core.state, feats, rep=0, row=0)
-    case = dict(zip(ARGS, args))
+    case = last_read_case(core, frames[-1])
+    args = tuple(case[key] for key in ARGS)
     ok_read, res, _ = compare(case, k)
     times = timed_case(case, k)
     segments = [int(v.shape[1]) for v in args[5]]
 
     ok = (launches["radix_topk_readout"] > 0 and core.consolidations >= 1
           and len(segments) == 3 and core.state.lt_count > 0
-          and float(np.median(ious)) > IOU_MEDIAN and float(ious.min()) > IOU_MIN
-          and ok_read)
+          and iou_ok(ious) and ok_read)
     emit({"phase": "lt_stream", "frames": t, "objects": 3, "size": [480, 854],
           "consolidations": core.consolidations, "lt_count": core.state.lt_count,
           "tokens": int(args[0].shape[0]), "segment_tokens": segments,
           "valid_tokens": int(args[2].sum()), "queries": int(args[3].shape[0]),
-          "launches": launches, "fps_frames_3_to_26": fps_steady,
+          "launches": launches, "fps_frames_3_to_26": fps_steady(frame_ms),
           "frame_ms": frame_ms, **times,
           "iou_median": float(np.median(ious)), "iou_min": float(ious.min()),
           "read_on_stream_inputs": dict(res, ok=ok_read),
@@ -564,6 +658,246 @@ def phase_lt_stream(k=30):
         raise RuntimeError("lt_stream phase failed")
     return dict(launches=launches, max_abs=res["readout_max_abs"], case=case,
                 **times)
+
+
+def variant_result(name, rec, run, t0, ok, size=(480, 854), **extra):
+    """Emit a golden stream phase's line: IoU against the golden at the
+    bars, kernel #1 launched, and ok; raise if it failed."""
+    id_maps, frame_ms, launches, per_frame = run
+    ious = stream_ious(id_maps, rec["masks"])
+    ok = ok and launches["radix_topk_readout"] > 0 and iou_ok(ious)
+    emit({"phase": name, "frames": len(frame_ms), "size": list(size),
+          "launches": launches,
+          "radix_launches_per_frame": per_frame, **extra,
+          "fps_frames_3_to_12": fps_steady(frame_ms), "frame_ms": frame_ms,
+          "iou_median": float(np.median(ious)), "iou_min": float(ious.min()),
+          "ok": bool(ok), "seconds": time.perf_counter() - t0})
+    if not ok:
+        raise RuntimeError(f"{name} phase failed")
+    return launches
+
+
+def phase_resize_stream():
+    """max_internal_size = 480 on 960x1708 frames: segmented at 480x854,
+    the output upsampled back (stream480_resize_trained.npz)."""
+    t0 = time.perf_counter()
+    core = base_core(max_internal_size=480)
+    rec, frames, mask0 = golden_video("stream480_resize_trained.npz", 960, 1708)
+    run = run_stream(core, frames, first_mask_step(mask0), (960, 1708))
+    case = last_read_case(core, frames[-1])
+    return variant_result(
+        "resize_stream", rec, run, t0, True, size=(960, 1708),
+        internal_size=list(core.internal_size(960, 1708)),
+        tokens=int(case["mk"].shape[0]), queries=int(case["qk"].shape[0]))
+
+
+def phase_flip_stream():
+    """flip_aug: batch row 1 holds the flipped frame, so every read frame
+    launches kernel #1 once a batch row (stream480_flip_trained.npz)."""
+    t0 = time.perf_counter()
+    core = base_core(flip_aug=True)
+    rec, frames, mask0 = golden_video("stream480_flip_trained.npz")
+    run = run_stream(core, frames, first_mask_step(mask0), (480, 854))
+    per_frame = run[3]
+    # frame 0 carries the first mask and reads nothing
+    ok = per_frame[0] == 0 and all(n == 2 for n in per_frame[1:])
+    return variant_result("flip_stream", rec, run, t0, ok,
+                          batch_rows=int(core.state.sensory.shape[0]))
+
+
+def phase_adddel_stream():
+    """Objects 1 and 2 from frame 0, object 3 added with its mask at frame 4
+    (a second bucket, read by a second launch a frame), object 2 deleted
+    before frame 8 (stream480_adddel_trained.npz, object-id maps)."""
+    t0 = time.perf_counter()
+    core = base_core()
+    rec, frames, mask0 = golden_video("stream480_adddel_trained.npz",
+                                      objects0=(1, 2))
+    gt4 = synth_gt_masks_480(5)[4].astype(np.int64)
+
+    def step(core, ti, frame):
+        if ti == 0:
+            return core.step(frame, mask0, objects=[1, 2])
+        if ti == 4:
+            return core.step(frame, gt4, objects=[1, 2, 3])
+        if ti == 8:
+            core.delete_objects([2])
+        return core.step(frame)
+
+    run = run_stream(core, frames, step, (480, 854))
+    per_frame = run[3]
+    ok = (all(n == 1 for n in per_frame[1:5]) and all(n == 2 for n in per_frame[5:])
+          and core.object_manager.all_obj_ids == [1, 3])
+    return variant_result("adddel_stream", rec, run, t0, ok,
+                          launches_before_deletion=sum(per_frame[:8]),
+                          launches_after_deletion=sum(per_frame[8:]))
+
+
+def amp_stage_dtypes(model, frame, n=2):
+    """{stage: output dtypes} of the model's stages on one frame [3, H, W]
+    (H, W multiples of 16) and n empty objects, on the model's device."""
+    dev = model.pixel_mean.device
+    mc = model.model_cfg
+    h, w = frame.shape[-2] // 16, frame.shape[-1] // 16
+    ones = torch.ones(1, n, device=dev)
+    names = lambda xs: [str(x.dtype).replace("torch.", "") for x in xs]
+    with torch.no_grad():
+        x = torch.as_tensor(frame, device=dev)[None]
+        (f16, f8, f4), pix = model.encode_image(x)
+        sens = torch.zeros(1, n, mc.sensory_dim, h, w, device=dev)
+        masks = torch.zeros(1, n, *frame.shape[-2:], device=dev)
+        mv, new_sens, summ, _ = model.encode_mask(x, pix, sens, masks)
+        fused = model.pixel_fusion(
+            pix, torch.zeros(1, n, mc.value_dim, h, w, device=dev), sens, masks)
+        r, aux = model.readout_query(fused, summ[:, :, None], selector=ones)
+        return {
+            "encode_image": names([f16, f8, f4, pix]),
+            "transform_key": names(model.transform_key(f16)),
+            "encode_mask": names([mv, new_sens, summ]),
+            "pixel_fusion": names([fused]),
+            "readout_query": names([r, aux["logits"], aux["attn_mask"]]),
+            "segment": names(model.segment((f16, f8, f4), r, sens, selector=ones)),
+        }
+
+
+# cutie_tpu's stage output dtypes under amp (tests/test_torch_amp.py holds
+# the port's to them on the CPU, against cutie_tpu itself)
+AMP_STAGE_DTYPES = {
+    "encode_image": ["bfloat16"] * 4,
+    "transform_key": ["bfloat16"] * 3,
+    "encode_mask": ["bfloat16", "float32", "float32"],
+    "pixel_fusion": ["bfloat16"],
+    "readout_query": ["bfloat16", "bfloat16", "bool"],
+    "segment": ["float32"] * 3,
+}
+
+
+def phase_amp_stream(fp32, k=30):
+    """The d17 stream with amp = True (bf16 conv and transformer stacks,
+    fp32 islands, bf16 value stores), held to the fp32 golden; every stage's
+    output dtype on the card as in cutie_tpu; kernel #1 on bf16 values,
+    against its plain version on the stream's own last read inputs; the
+    fp32 and amp frame times side by side (fp32: the stream phase, same
+    call)."""
+    t0 = time.perf_counter()
+    core = base_core(top_k=k, amp=True)
+    rec, frames, mask0 = golden_video("stream480_work_trained.npz",
+                                      extra_frames=PROFILED_FRAMES)
+    t = int(rec["t"])
+    dtypes = amp_stage_dtypes(core.network, frames[0][:, :480, :848])
+    run = run_stream(core, frames[:t], first_mask_step(mask0), (480, 854))
+    case = last_read_case(core, frames[t - 1])
+    ok_read, res, _ = compare(case, k)
+    times = timed_case(case, k)
+    bf16_values = all(v.dtype == torch.bfloat16 for v in case["values"])
+    kernel_ms = kernel_ms_per_frame(core, frames, t)
+    launches = variant_result(
+        "amp_stream", rec, run, t0,
+        ok_read and bf16_values and dtypes == AMP_STAGE_DTYPES,
+        stage_dtypes=dtypes, stage_dtypes_ok=dtypes == AMP_STAGE_DTYPES,
+        bf16_values=bf16_values, read_on_stream_inputs=dict(res, ok=ok_read),
+        **times, fp32_fps_frames_3_to_12=fp32["fps"],
+        kernel_ms_per_frame_13_to_16=kernel_ms,
+        fp32_kernel_ms_per_frame_13_to_16=fp32["kernel_ms_per_frame"])
+    return dict(launches=launches, max_abs=res["readout_max_abs"], **times)
+
+
+def state_tensors(state):
+    return {f.name: getattr(state, f.name) for f in dataclasses.fields(state)
+            if torch.is_tensor(getattr(state, f.name))}
+
+
+def phase_config():
+    """update_config mid-stream, twice. (a) The d17 stream: after frame 6
+    max_mem_frames 5 -> 8 and top_k 30 -> 20. (b) The long-term stream:
+    after frame 20 long_term.max_mem_frames 4 -> 3 with max_num_tokens
+    4000 -> 6000, then 3 -> 2, which leaves the ring exactly full, so that
+    update_config consolidates it (the ring holds two frames there; a ring
+    of three slots does not need draining). Structural checks: state on the
+    card, buffers at their new sizes, counters, valid outputs, kernel #1
+    launched with the new top_k."""
+    t0 = time.perf_counter()
+    read_kernel.radix_topk_readout.launches = 0
+    read_kernel.fused_topk_readout.launches = 0
+    top_ks = []
+    launch = read_kernel.radix_topk_readout_cuda
+
+    def recording(*args, **kwargs):
+        top_ks.append(kwargs.get("top_k", args[-1] if len(args) > 6 else None))
+        return launch(*args, **kwargs)
+
+    read_kernel.radix_topk_readout_cuda = recording
+    try:
+        res_a, ok_a = config_run_a()
+        res_b, ok_b = config_run_b()
+    finally:
+        read_kernel.radix_topk_readout_cuda = launch
+    launches = {"radix_topk_readout": read_kernel.radix_topk_readout.launches,
+                "fused_topk_readout": read_kernel.fused_topk_readout.launches}
+    top_k_after = top_ks[res_a.pop("reads_before_update"):res_a["reads"]]
+    ok = ok_a and ok_b and bool(top_k_after) and set(top_k_after) == {20}
+    emit({"phase": "config", "a": res_a, "b": res_b, "launches": launches,
+          "top_k_of_reads_after_update_a": sorted(set(top_k_after)),
+          "ok": ok, "seconds": time.perf_counter() - t0})
+    if not ok:
+        raise RuntimeError("config phase failed")
+    return dict(launches=launches)
+
+
+def on_card(core):
+    return all(t.is_cuda for t in state_tensors(core.state).values())
+
+
+def config_run_a():
+    core = base_core()
+    frames, mask0 = synth_frames_480(12)
+    step = first_mask_step(mask0)
+    ok = True
+    for ti in range(7):
+        ok &= valid_probabilities(step(core, ti, frames[ti]))
+    reads_before = read_kernel.radix_topk_readout.launches
+    core.update_config(dict(core.cfg.to_dict(), max_mem_frames=8, top_k=20))
+    st = core.state
+    ok &= (on_card(core) and st.work_key.shape[1] == 7 == core.ring_frames
+           and st.work_value.shape[2] == 7 and core.steps.top_k == 20)
+    for ti in range(7, 12):
+        ok &= valid_probabilities(step(core, ti, frames[ti]))
+    ok &= on_card(core) and st.work_count <= 7
+    return {"ring_frames": core.ring_frames, "work_count": core.state.work_count,
+            "reads_before_update": reads_before,
+            "reads": read_kernel.radix_topk_readout.launches}, bool(ok)
+
+
+def config_run_b():
+    core = base_core(**LT_SETTINGS)
+    frames, mask0 = synth_frames_480(26)
+    step = first_mask_step(mask0)
+    ok = True
+    for ti in range(21):
+        ok &= valid_probabilities(step(core, ti, frames[ti]))
+    before = dict(consolidations=core.consolidations, lt_count=core.state.lt_count,
+                  work_count=core.state.work_count)
+    cfg = core.cfg.to_dict()
+    cfg["long_term"].update(max_mem_frames=3, max_num_tokens=6000)
+    core.update_config(cfg)
+    ok &= (on_card(core) and core.ring_frames == 3 == core.state.work_key.shape[1]
+           and core.state.lt_key.shape[1] == 6000 + 64 == core.lt_capacity
+           and core.consolidations == before["consolidations"])
+    cfg["long_term"].update(max_mem_frames=2)
+    core.update_config(cfg)
+    st = core.state
+    done = core.consolidations - before["consolidations"]
+    ok &= (on_card(core) and done >= 1 and core.ring_frames == 2
+           and st.work_key.shape[1] == 2 and st.work_count <= 2
+           and st.lt_count == before["lt_count"] + 64 * done
+           and st.lt_value.shape[2] == 6064)
+    for ti in range(21, 26):
+        ok &= valid_probabilities(step(core, ti, frames[ti]))
+    ok &= on_card(core)
+    return {"before_update": before, "consolidations_in_update_config": done,
+            "ring_frames": core.ring_frames, "work_count": core.state.work_count,
+            "lt_count": core.state.lt_count,
+            "lt_capacity": int(core.state.lt_key.shape[1])}, bool(ok)
 
 
 def phase_kernel(lt_case, k=30):
@@ -707,17 +1041,24 @@ def main():
     occupancy = phase_build()
     sres = phase_stream()
     lres = phase_lt_stream()
+    by_path = {"stream": sres["launches"], "lt_stream": lres["launches"],
+               "resize_stream": phase_resize_stream(),
+               "flip_stream": phase_flip_stream(),
+               "adddel_stream": phase_adddel_stream()}
+    ares = phase_amp_stream(sres)
+    by_path["amp_stream"] = ares["launches"]
+    by_path["config"] = phase_config()["launches"]
     kres = phase_kernel(lres["case"])
     fres = phase_fused(sres["case"], kres["cases"]["lvos600"])
     t0 = time.perf_counter()
-    by_path = {"stream": sres["launches"], "lt_stream": lres["launches"]}
     emit({"kernels": [{
         "name": "radix_topk_readout", "route": "cuda",
         "source": "cutie_tpu_torch/csrc/radix_topk_readout.cu",
         "replaces": "cutie_tpu/ops/pallas_kernels.py:380",
         "launches": sum(v["radix_topk_readout"] for v in by_path.values()),
         "launches_by_path": {p: v["radix_topk_readout"] for p, v in by_path.items()},
-        "max_abs_err": max(kres["max_abs"], sres["max_abs"], lres["max_abs"]),
+        "max_abs_err": max(kres["max_abs"], sres["max_abs"], lres["max_abs"],
+                           ares["max_abs"]),
         "ms": sres["kernel_ms"], "plain_ms": sres["plain_ms"],
         "bound_ms": sres["bound_ms"], "bound_by": sres["bound_by"],
         "library_ms": None,
@@ -726,6 +1067,8 @@ def main():
                      for case in ("d17", "lvos600")},
         "blocks_per_sm": occupancy["radix_topk_readout fp32 values"],
         "lt_stream": {key: lres[key] for key in ("kernel_ms", "plain_ms", "bound_ms")},
+        "amp_stream_bf16_values": {key: ares[key]
+                                   for key in ("kernel_ms", "plain_ms", "bound_ms")},
         "lvos600": {key: kres["results"]["lvos600"][key]
                     for key in ("waves", "kernel_ms", "plain_ms", "bound_ms")},
     }, {

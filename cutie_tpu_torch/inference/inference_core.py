@@ -3,11 +3,12 @@
 The port's counterpart of cutie_tpu/inference/inference_core.py (reference
 cutie/inference/inference_core.py:18-345): step, output_prob_to_mask,
 clear_memory, clear_non_permanent_memory, clear_sensory_memory and
-delete_objects, with the mem_every cadence, staggered sensory updates,
-partial-mask merging, force_permanent commits and, in long-term mode,
-consolidation. The shell keeps the host bookkeeping (object ids, buckets,
-cadence) and calls the step functions over a fixed-capacity MemoryState on
-the model's device.
+delete_objects and update_config, with the mem_every cadence, staggered
+sensory updates, partial-mask merging, force_permanent commits, in
+long-term mode consolidation, and the eval options max_internal_size,
+flip_aug, save_aux and amp (a model built with amp=True). The shell keeps
+the host bookkeeping (object ids, buckets, cadence) and calls the step
+functions over a fixed-capacity MemoryState on the model's device.
 
 Inputs follow the reference: image is CHW float in [0, 1] or HWC uint8
 (numpy or torch); masks are HW index masks or [num_objects, H, W] channel
@@ -26,8 +27,11 @@ from cutie_tpu_torch.inference.image_feature_store import ImageFeatureStore
 from cutie_tpu_torch.inference.object_manager import ObjectManager
 from cutie_tpu_torch.inference.state import (MemoryState, grow_perm,
                                              init_state, pad_objects,
-                                             reorder_objects)
+                                             reorder_objects,
+                                             resize_lt_capacity,
+                                             resize_work_ring)
 from cutie_tpu_torch.inference.steps import StepFunctions
+from cutie_tpu_torch.ops.resize import bilinear_resize, nearest_exact_resize_np
 from cutie_tpu_torch.ops.tensor_utils import aggregate_wbg_np, compute_pad
 
 log = logging.getLogger(__name__)
@@ -37,13 +41,16 @@ class InferenceCore:
     def __init__(self, network: torch.nn.Module, cfg):
         """network: a CUTIE model (utils.get_default_model.build_model);
         cfg: an eval config. Runs on the model's device."""
-        if cfg.get("max_internal_size", -1) > 0:
-            raise NotImplementedError("max_internal_size is not ported yet")
-        if cfg.get("save_aux", False):
-            raise NotImplementedError("save_aux is not ported yet")
         self.network = network
         self.cfg = cfg
         self.device = next(network.parameters()).device
+        # see internal_size; outputs are upsampled back to the input's size
+        self.max_internal_size = cfg.get("max_internal_size", -1)
+        self.flip_aug = bool(cfg.get("flip_aug", False))
+        # with save_aux, the last segmented frame's aux tensors
+        # (StepFunctions.segment)
+        self.save_aux = bool(cfg.get("save_aux", False))
+        self.aux = None
         self.steps = StepFunctions(network, cfg)
         self.image_feature_store = ImageFeatureStore(self.steps)
         self.mem_every = cfg.mem_every
@@ -113,6 +120,56 @@ class InferenceCore:
         if self.state is not None:
             self.state.sensory.zero_()
 
+    def update_config(self, cfg) -> None:
+        """Change the memory budgets mid-video (cutie_tpu
+        inference_core.py:147-205; reference inference_core.py:67-69 and
+        memory_manager.py:59-75): mem_every and top_k take effect on the
+        next frame; max_mem_frames, and in long-term mode the long-term
+        budgets, reallocate the ring and the long-term buffers on the
+        state's device. use_long_term cannot change."""
+        if self.use_long_term != bool(cfg["use_long_term"]):
+            # the error type cutie_tpu and the reference raise
+            raise AssertionError("use_long_term cannot be updated")
+        self.mem_every = cfg["mem_every"]
+        self.steps.top_k = int(cfg["top_k"])
+        st = self.state
+        if self.use_long_term:
+            lt = cfg["long_term"]
+            self.max_mem_frames = lt["max_mem_frames"] - 1
+            self.min_mem_frames = lt["min_mem_frames"] - 1
+            self.max_long_tokens = lt["max_num_tokens"]
+            self.buffer_tokens = lt["buffer_tokens"]
+            new_ring = self.max_mem_frames + 1
+            new_lt_cap = self.max_long_tokens + self.num_prototypes
+            if new_lt_cap != self.lt_capacity:
+                self.lt_capacity = new_lt_cap
+                if st is not None:
+                    self.state = st = resize_lt_capacity(st, new_lt_cap)
+            # on a ring shrink, consolidate with the old ring intact until
+            # the surviving frames fit: the reference consolidates before it
+            # trims (memory_manager.py:282-296), where resizing first would
+            # drop the oldest frames instead of absorbing them
+            if st is not None and new_ring < self.ring_frames:
+                while (st.work_count > new_ring
+                       and st.work_count > self.min_mem_frames):
+                    before = st.work_count
+                    self._maybe_consolidate()
+                    if st.work_count >= before:
+                        break
+        else:
+            self.max_mem_frames = cfg["max_mem_frames"] - 1
+            new_ring = max(self.max_mem_frames, 1)
+        if new_ring != self.ring_frames:
+            self.ring_frames = new_ring
+            if st is not None:
+                self.state = st = resize_work_ring(st, new_ring)
+        # a ring shrunk to exactly full would make the next memory frame
+        # overwrite an unconsolidated frame: drain it now
+        if (self.use_long_term and st is not None
+                and st.work_count >= self.ring_frames
+                and st.work_count > self.min_mem_frames):
+            self._maybe_consolidate()
+
     # -------------------------------------------------------------- internals
 
     def _selector(self) -> torch.Tensor:
@@ -142,14 +199,14 @@ class InferenceCore:
         cap = num_obj
         if self.state is None:
             self.state = init_state(
-                batch=1, max_objects=cap, h=h16, w=w16,
+                batch=2 if self.flip_aug else 1, max_objects=cap, h=h16, w=w16,
                 sensory_dim=mc.sensory_dim, key_dim=mc.key_dim,
                 value_dim=mc.value_dim,
                 num_queries=mc.object_transformer.num_queries,
                 embed_dim=mc.object_transformer.embed_dim,
                 perm_frames=max(self.cfg.get("perm_frame_capacity", 1), 1),
                 work_frames=self.ring_frames, lt_capacity=self.lt_capacity,
-                device=self.device)
+                value_dtype=self.network.compute_dtype, device=self.device)
         elif self.state.num_objects < cap:
             self.state = pad_objects(self.state, cap)
 
@@ -208,6 +265,14 @@ class InferenceCore:
                 out[tmp_id - 1] = mask_p[mask_id]
         return out
 
+    def internal_size(self, h: int, w: int):
+        """The size an h x w frame is segmented at: its shorter side scaled
+        down to max_internal_size where it exceeds it."""
+        m = self.max_internal_size
+        if 0 < m < min(h, w):
+            return int(h / min(h, w) * m), int(w / min(h, w) * m)
+        return h, w
+
     def _to_image(self, image) -> torch.Tensor:
         """[3, H, W] float in [0, 1] on the device, from CHW float or HWC
         uint8 input (numpy or torch)."""
@@ -231,6 +296,18 @@ class InferenceCore:
                 raise ValueError("an index mask needs its object ids")
             objects = list(range(1, mask.shape[0] + 1))
         image = self._to_image(image)
+        orig_h, orig_w = image.shape[-2:]
+        new_h, new_w = self.internal_size(orig_h, orig_w)
+        resize_needed = (new_h, new_w) != (orig_h, orig_w)
+        if resize_needed:
+            # non-antialiased bilinear on the device, as the reference
+            # (inference_core.py:203-225); index masks nearest-exact
+            image = bilinear_resize(image, new_h, new_w)
+            if mask is not None:
+                mask = np.asarray(mask)
+                mask = (nearest_exact_resize_np(mask, new_h, new_w) if idx_mask
+                        else bilinear_resize(torch.from_numpy(mask.astype(np.float32)),
+                                             new_h, new_w).numpy())
         h, w = image.shape[-2:]
         self.curr_ti += 1
         self.pad = compute_pad(h, w, 16)
@@ -245,8 +322,12 @@ class InferenceCore:
         update_sensory = ((self.curr_ti - self.last_mem_ti)
                           in self.stagger_ti) and (not end)
 
+        def restore_size(prob):
+            return bilinear_resize(prob, orig_h, orig_w) if resize_needed else prob
+
         if (mask is None and self.engaged and not force_permanent
-                and delete_buffer and self.curr_ti not in self.image_feature_store):
+                and not self.save_aux and delete_buffer
+                and self.curr_ti not in self.image_feature_store):
             bucket_rep, bucket_sel = self._buckets()
             prob = self.steps.step_plain(
                 self.state, image, self._selector(), bucket_rep, bucket_sel,
@@ -255,7 +336,7 @@ class InferenceCore:
             if is_mem_frame:
                 self.last_mem_ti = self.curr_ti
                 self._maybe_consolidate()
-            return prob
+            return restore_size(prob)
 
         feats = self.image_feature_store.get_features(self.curr_ti, image,
                                                       pad=self.pad)
@@ -265,7 +346,7 @@ class InferenceCore:
             # advances every step) and match the normal output size
             if delete_buffer:
                 self.image_feature_store.delete(self.curr_ti)
-            return torch.zeros((1, h, w), device=self.device)
+            return torch.zeros((1, orig_h, orig_w), device=self.device)
 
         pred_prob_with_bg = None
         if need_segment:
@@ -273,8 +354,10 @@ class InferenceCore:
                 log.warning("Trying to segment without any memory!")
                 return empty_result()
             bucket_rep, bucket_sel = self._buckets()
-            prob = self.steps.segment(self.state, feats, self._selector(),
-                                      update_sensory, bucket_rep, bucket_sel)
+            prob, aux = self.steps.segment(self.state, feats, self._selector(),
+                                           update_sensory, bucket_rep, bucket_sel)
+            if self.save_aux:
+                self.aux = aux
             pred_prob_with_bg = prob[0]
 
         if mask is not None:
@@ -314,7 +397,7 @@ class InferenceCore:
             self.image_feature_store.delete(self.curr_ti)
 
         out = pred_prob_with_bg[:, lh:h_pad - uh, lw:w_pad - uw]
-        return out[:self.object_manager.num_obj + 1]
+        return restore_size(out[:self.object_manager.num_obj + 1])
 
     # ------------------------------------------------------------- public api
 

@@ -31,7 +31,7 @@ class MemoryState:
     obj_v: torch.Tensor            # [B, O, Q, E+1] fp32
     perm_key: torch.Tensor         # [B, Pcap, Ck]
     perm_shrink: torch.Tensor      # [B, Pcap]
-    perm_value: torch.Tensor       # [B, O, Pcap, Cv]
+    perm_value: torch.Tensor       # [B, O, Pcap, Cv] fp32 (bf16 under amp)
     perm_obj_valid: torch.Tensor   # [O, Pcap] bool: token valid for object
     work_key: torch.Tensor         # [B, F, HW, Ck]
     work_shrink: torch.Tensor      # [B, F, HW]
@@ -71,9 +71,12 @@ class MemoryState:
 def init_state(*, batch: int, max_objects: int, h: int, w: int,
                sensory_dim: int, key_dim: int, value_dim: int,
                num_queries: int, embed_dim: int, perm_frames: int,
-               work_frames: int, lt_capacity: int = 0, device) -> MemoryState:
+               work_frames: int, lt_capacity: int = 0,
+               value_dtype: torch.dtype = torch.float32, device) -> MemoryState:
     """An empty state; h, w are the stride-16 dims (HW = h*w tokens/frame),
-    lt_capacity the long-term tokens (0 outside long-term mode)."""
+    lt_capacity the long-term tokens (0 outside long-term mode). The value
+    stores hold value_dtype: bf16 under amp, where the mask encoder emits
+    bf16 values and the read takes them as they are."""
     hw = h * w
     pcap = perm_frames * hw
     B, O = batch, max_objects
@@ -86,18 +89,18 @@ def init_state(*, batch: int, max_objects: int, h: int, w: int,
         obj_v=z(B, O, num_queries, embed_dim + 1),
         perm_key=z(B, pcap, key_dim),
         perm_shrink=z(B, pcap),
-        perm_value=z(B, O, pcap, value_dim),
+        perm_value=z(B, O, pcap, value_dim, dtype=value_dtype),
         perm_obj_valid=z(O, pcap, dtype=torch.bool),
         work_key=z(B, work_frames, hw, key_dim),
         work_shrink=z(B, work_frames, hw),
-        work_value=z(B, O, work_frames, hw, value_dim),
+        work_value=z(B, O, work_frames, hw, value_dim, dtype=value_dtype),
         work_obj_valid=z(O, work_frames, dtype=torch.bool),
         work_sel=z(B, work_frames, hw, key_dim),
         work_use=z(B, work_frames, hw),
         work_life=z(B, work_frames, hw),
         lt_key=z(B, lt_capacity, key_dim),
         lt_shrink=z(B, lt_capacity),
-        lt_value=z(B, O, lt_capacity, value_dim),
+        lt_value=z(B, O, lt_capacity, value_dim, dtype=value_dtype),
         lt_obj_valid=z(O, lt_capacity, dtype=torch.bool),
         lt_use=z(B, lt_capacity),
         lt_life=z(B, lt_capacity),
@@ -128,6 +131,63 @@ def pad_objects(state: MemoryState, new_max_objects: int) -> MemoryState:
         lt_obj_valid=_grow(state.lt_obj_valid, 0, n),
         last_mask=_grow(state.last_mask, 1, n),
     )
+
+
+def resize_work_ring(state: MemoryState, new_frames: int) -> MemoryState:
+    """The working-memory ring reallocated to new_frames frame slots, its
+    frames in FIFO order from slot 0 (cutie_tpu state.py:resize_work_ring,
+    reference memory_manager.py:59-75). A shrink keeps the newest frames:
+    the ones the reference's next FIFO sieve would keep."""
+    f = state.work_key.shape[1]
+    if new_frames == f:
+        return state
+    keep = min(state.work_count, new_frames)
+    # chronological slot order, the newest `keep` kept
+    src = [(state.work_start + i) % f for i in range(state.work_count)]
+    src = src[state.work_count - keep:]
+    idx = torch.tensor(src, dtype=torch.long, device=state.work_key.device)
+
+    def take(x, dim):
+        shape = list(x.shape)
+        shape[dim] = new_frames
+        out = x.new_zeros(shape)
+        out.narrow(dim, 0, keep).copy_(x.index_select(dim, idx))
+        return out
+
+    return dataclasses.replace(
+        state,
+        work_key=take(state.work_key, 1),
+        work_shrink=take(state.work_shrink, 1),
+        work_sel=take(state.work_sel, 1),
+        work_value=take(state.work_value, 2),
+        work_obj_valid=take(state.work_obj_valid, 1),
+        work_use=take(state.work_use, 1),
+        work_life=take(state.work_life, 1),
+        work_start=0, work_count=keep)
+
+
+def resize_lt_capacity(state: MemoryState, new_cap: int) -> MemoryState:
+    """The long-term buffers reallocated to new_cap tokens (cutie_tpu
+    state.py:resize_lt_capacity): a grow appends invalid slots, a shrink
+    keeps the first new_cap tokens."""
+    cap = state.lt_key.shape[1]
+    if new_cap == cap:
+        return state
+
+    def resize(x, dim):
+        if new_cap < cap:
+            return x.narrow(dim, 0, new_cap).clone()
+        return _grow(x, dim, new_cap)
+
+    return dataclasses.replace(
+        state,
+        lt_key=resize(state.lt_key, 1),
+        lt_shrink=resize(state.lt_shrink, 1),
+        lt_value=resize(state.lt_value, 2),
+        lt_obj_valid=resize(state.lt_obj_valid, 1),
+        lt_use=resize(state.lt_use, 1),
+        lt_life=resize(state.lt_life, 1).clamp_(min=1e-7),
+        lt_count=min(state.lt_count, new_cap))
 
 
 def grow_perm(state: MemoryState, new_perm_tokens: int) -> MemoryState:

@@ -15,7 +15,7 @@ kernel for tensors on the card, its plain version on the CPU.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -54,10 +54,12 @@ class StepFunctions:
     """The step functions of one CUTIE model under one eval config."""
 
     def __init__(self, model: CUTIE, cfg):
-        if cfg.get("flip_aug", False):
-            raise NotImplementedError("flip_aug is not ported yet")
         self.model = model
         self.top_k = int(cfg.top_k)
+        # batch row 1 holds the horizontally flipped frame
+        # (cutie_tpu inference_core.py:266, steps.py:157-159)
+        self.flip_aug = bool(cfg.get("flip_aug", False))
+        self.save_aux = bool(cfg.get("save_aux", False))
         self.use_long_term = bool(cfg.get("use_long_term", False))
         if self.use_long_term:
             self.num_prototypes = int(cfg.long_term.num_prototypes)
@@ -67,6 +69,8 @@ class StepFunctions:
         """image [3, H, W] float in [0, 1] on the model's device; pad
         (lw, uw, lh, uh) zero padding to a multiple of 16."""
         x = F.pad(image[None], pad)
+        if self.flip_aug:
+            x = torch.cat([x, x.flip(-1)])
         (f16, f8, f4), pix_feat = self.model.encode_image(x)
         key, shrinkage, selection = self.model.transform_key(f16)
         return FrameFeatures(x, f16, f8, f4, pix_feat, key, shrinkage,
@@ -93,8 +97,9 @@ class StepFunctions:
             perm_valid & state.perm_obj_valid[rep],
             state.lt_valid() & state.lt_obj_valid[rep],
             (state.ring_valid() & state.work_obj_valid[rep]).repeat_interleave(hw)])
-        qk = feats.key[row].flatten(1).T.contiguous()
-        qe = feats.selection[row].flatten(1).T.contiguous()
+        # the similarity is fp32 (under amp the key projection emits bf16)
+        qk = feats.key[row].flatten(1).T.float().contiguous()
+        qe = feats.selection[row].flatten(1).T.float().contiguous()
         values = (state.perm_value[row], state.lt_value[row],
                   state.work_value[row].reshape(o, f * hw, cv))
         return mk, ms, valid, qk, qe, values
@@ -138,31 +143,63 @@ class StepFunctions:
     def segment(self, state: MemoryState, feats: FrameFeatures,
                 selector: torch.Tensor, update_sensory: bool,
                 bucket_rep: Tuple[int, ...], bucket_sel: torch.Tensor
-                ) -> torch.Tensor:
+                ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
         """Memory read, object transformer and decoder
         (inference_core.py:123-170). selector [O] marks the live object
-        slots. Returns prob with background [B, O+1, Hp, Wp]."""
+        slots. Returns (prob with background [B, O+1, Hp, Wp], aux).
+
+        Under flip_aug the prediction is the mean of the frame's and the
+        flipped frame's (B = 1), and last_mask keeps it in both orientations
+        (cutie_tpu steps.py:560-567).
+
+        aux is None unless save_aux; then it holds, merged across buckets on
+        the object axis (cutie_tpu steps.py:525-559, reference
+        memory_manager.py:197-206), channels first:
+          pixel_readout [B, O, E, h, w]  the pixel fusion's output;
+          q_logits      [B, O, L, H, W]  the object transformer's mask
+                                         logits, L = num_blocks + 1;
+          attn_mask     [B, O, heads, Q, hw] bool, True = blocked;
+          sensory       [B, O, Cs, h, w] the updated sensory memory;
+        B is 2 under flip_aug (both orientations)."""
         model = self.model
         pixel_readout = self.read_memory(state, feats, bucket_rep, bucket_sel)
         obj_mem = state.obj_v[:, :, None]
         b, o = state.sensory.shape[:2]
         # pixel fusion and the object transformer run per bucket, as in the
         # reference (memory_manager.py:183-195)
-        mem_readout = 0
+        mem_readout, aux = 0, None
         for bi in range(len(bucket_rep)):
             bsel = bucket_sel[bi]
             fused = model.pixel_fusion(
                 feats.pix_feat, pixel_readout, state.sensory,
                 state.last_mask * bsel[None, :, None, None])
-            r, _ = model.readout_query(fused, obj_mem,
-                                       selector=bsel[None].expand(b, o))
-            mem_readout = mem_readout + r * bsel[None, :, None, None, None]
+            r, aux_b = model.readout_query(fused, obj_mem,
+                                           selector=bsel[None].expand(b, o))
+            sel5 = bsel[None, :, None, None, None]
+            mem_readout = mem_readout + r * sel5
+            if self.save_aux and aux_b is not None:
+                am = aux_b["attn_mask"].view(b, o, *aux_b["attn_mask"].shape[1:])
+                if aux is None:
+                    aux = {"pixel_readout": fused * sel5,
+                           "q_logits": aux_b["logits"] * sel5, "attn_mask": am}
+                else:
+                    aux["pixel_readout"] = aux["pixel_readout"] + fused * sel5
+                    aux["q_logits"] = aux["q_logits"] + aux_b["logits"] * sel5
+                    aux["attn_mask"] = torch.where(sel5 > 0.5, am,
+                                                   aux["attn_mask"])
         sensory, _, prob = model.segment(
             (feats.f16, feats.f8, feats.f4), mem_readout, state.sensory,
             selector=selector[None].expand(b, o), update_sensory=update_sensory)
         state.sensory = sensory
-        state.last_mask = prob[:, 1:]
-        return prob
+        if self.flip_aug:
+            prob = 0.5 * (prob[0:1] + prob[1:2].flip(-1))
+            last = prob[:, 1:]
+            state.last_mask = torch.cat([last, last.flip(-1)])
+        else:
+            state.last_mask = prob[:, 1:]
+        if aux is not None:
+            aux["sensory"] = sensory
+        return prob, aux
 
     @torch.no_grad()
     def memorize(self, state: MemoryState, feats: FrameFeatures,
@@ -218,8 +255,13 @@ class StepFunctions:
         state.work_life[:, slot] = 1e-7
 
     def set_last_mask(self, state: MemoryState, prob_no_bg: torch.Tensor) -> None:
-        """Overwrite last_mask (after user-provided masks are merged)."""
-        state.last_mask = prob_no_bg.float()
+        """Overwrite last_mask (after user-provided masks are merged) with
+        prob_no_bg [1, O, Hp, Wp], mirrored into batch row 1 under
+        flip_aug."""
+        last = prob_no_bg.float()
+        if self.flip_aug:
+            last = torch.cat([last, last.flip(-1)])
+        state.last_mask = last
 
     @torch.no_grad()
     def consolidate(self, state: MemoryState, n_candidate_frames: int,
@@ -319,8 +361,8 @@ class StepFunctions:
         do_memorize. Returns the unpadded prob [n_out, H, W] of batch row 0
         (n_out > 0) or the padded [B, O+1, Hp, Wp]."""
         feats = self.encode(image, pad=pad)
-        prob = self.segment(state, feats, selector, update_sensory,
-                            bucket_rep, bucket_sel)
+        prob, _ = self.segment(state, feats, selector, update_sensory,
+                               bucket_rep, bucket_sel)
         if do_memorize:
             self.memorize(state, feats, selector, torch.zeros_like(selector),
                           mode="no")

@@ -15,9 +15,15 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from cutie_tpu_torch.models.layers import CAResBlock
+from cutie_tpu_torch.models.layers import CAResBlock, fp32_island
 
 NEG_INF = -1e30
+
+
+def _fp32_norm(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    """LayerNorm in fp32, under amp too (cutie_tpu attention.py:62)."""
+    with fp32_island(x):
+        return norm(x.float())
 
 
 class MultiheadAttention(nn.Module):
@@ -60,7 +66,7 @@ class SelfAttention(nn.Module):
         self.self_attn = MultiheadAttention(dim, num_heads)
 
     def forward(self, x, pe):
-        x = self.norm(x)
+        x = _fp32_norm(self.norm, x)
         x_pe = x + pe
         q, k, v = (x_pe if a else x for a in self.add_pe_to_qkv)
         return x + self.self_attn(q, k, v)
@@ -78,7 +84,7 @@ class CrossAttention(nn.Module):
 
     def forward(self, x, mem, x_pe, mem_pe, attn_mask=None):
         if self.norm is not None:
-            x = self.norm(x)
+            x = _fp32_norm(self.norm, x)
         q = x + x_pe if self.add_pe_to_qkv[0] else x
         mem_pe_added = mem + mem_pe
         k = mem_pe_added if self.add_pe_to_qkv[1] else mem
@@ -96,7 +102,7 @@ class FFN(nn.Module):
         self.linear2 = nn.Linear(dim_ff, dim_in)
 
     def forward(self, x):
-        return x + self.linear2(F.relu(self.linear1(self.norm(x))))
+        return x + self.linear2(F.relu(self.linear1(_fp32_norm(self.norm, x))))
 
 
 class PixelFFN(nn.Module):

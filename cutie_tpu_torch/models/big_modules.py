@@ -17,7 +17,8 @@ from cutie_tpu_torch.config import Config
 from cutie_tpu_torch.models.layers import (GConv2d, GroupFeatureFusionBlock,
                                            MaskUpsampleBlock,
                                            SensoryDeepUpdater, SensoryUpdater,
-                                           flatten_group, unflatten_group)
+                                           flatten_group, fp32_island,
+                                           unflatten_group)
 from cutie_tpu_torch.models.resnet import ResNetTrunk
 
 
@@ -47,7 +48,12 @@ class KeyProjection(nn.Module):
 
     def forward(self, x: torch.Tensor, *, need_s: bool, need_e: bool):
         x = self.pix_feat_proj(x)
-        shrinkage = self.d_proj(x) ** 2 + 1 if need_s else None
+        shrinkage = None
+        if need_s:
+            # d * d, not d ** 2: CUDA autocast runs pow in fp32, cutie_tpu
+            # in bf16
+            d = self.d_proj(x)
+            shrinkage = d * d + 1
         selection = torch.sigmoid(self.e_proj(x)) if need_e else None
         return self.key_proj(x), shrinkage, selection
 
@@ -100,7 +106,8 @@ class PixelFeatureFuser(nn.Module):
         mask_feat = torch.stack([last_mask, last_others], dim=2)
         sensory_readout = self.sensory_compress(
             torch.cat([sensory_memory, mask_feat], dim=2))
-        return self.fuser(pix_feat, pixel_memory + sensory_readout)
+        return self.fuser(pix_feat,
+                          pixel_memory.to(sensory_readout.dtype) + sensory_readout)
 
 
 class DecoderFeatureProcessor(nn.Module):
@@ -144,7 +151,8 @@ class MaskDecoder(nn.Module):
         p8 = self.up_16_8(p16, f8)
         p4 = self.up_8_4(p8, f4)
         flat, bn = flatten_group(p4)
-        logits = unflatten_group(self.pred(F.relu(flat.float())), bn)
+        with fp32_island(flat):
+            logits = unflatten_group(self.pred(F.relu(flat.float())), bn)
         if update_sensory:
             p4 = torch.cat([p4.float(), logits], dim=2)
             sensory = self.sensory_update([p16, p8, p4], sensory)

@@ -7,9 +7,17 @@ and segment. The stateful memory logic lives in cutie_tpu_torch.inference.
 
 Layouts follow the reference: images [B, 3, H, W]; group tensors
 [B, N, C, H, W]; masks [B, N, H, W].
+
+Precision (cutie_tpu/utils/get_default_model.py:50-64): cfg.amp or
+cfg.compute_dtype == 'bfloat16' makes compute_dtype bf16, and each stage
+method then runs under torch.autocast to bf16. Parameters stay fp32, and
+the fp32 islands (the GRUs' transforms and gates, the summarizer pooling,
+the logits head, the final sigmoid, LayerNorm and the attention softmax)
+run in fp32 (models/layers.py:fp32_island).
 """
 from __future__ import annotations
 
+import functools
 from typing import List, Optional
 
 import torch
@@ -19,11 +27,22 @@ from cutie_tpu_torch.config import Config
 from cutie_tpu_torch.models.big_modules import (KeyProjection, MaskDecoder,
                                                 MaskEncoder, PixelEncoder,
                                                 PixelFeatureFuser)
+from cutie_tpu_torch.models.layers import fp32_island
 from cutie_tpu_torch.models.object_summarizer import ObjectSummarizer
 from cutie_tpu_torch.models.object_transformer import QueryTransformer
 from cutie_tpu_torch.ops.memory import get_similarity, readout, softmax_affinity
 from cutie_tpu_torch.ops.resize import area_downsample, upsample_4x
 from cutie_tpu_torch.ops.tensor_utils import aggregate
+
+
+def _stage(method):
+    """Run a stage method under autocast to the model's compute dtype."""
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        with torch.autocast(self.pixel_mean.device.type, dtype=torch.bfloat16,
+                            enabled=self.compute_dtype == torch.bfloat16):
+            return method(self, *args, **kwargs)
+    return run
 
 
 class CUTIE(nn.Module):
@@ -32,6 +51,9 @@ class CUTIE(nn.Module):
         super().__init__()
         model_cfg = cfg.model
         self.model_cfg = model_cfg
+        amp = (bool(cfg.get("amp", False))
+               or str(cfg.get("compute_dtype", "float32")) == "bfloat16")
+        self.compute_dtype = torch.bfloat16 if amp else torch.float32
         self.object_transformer_enabled = (
             model_cfg.object_transformer.num_blocks > 0)
         self.pixel_encoder = PixelEncoder(model_cfg)
@@ -59,16 +81,19 @@ class CUTIE(nn.Module):
         """Per-object sum of all other objects' masks (cutie.py:49-59)."""
         return (masks.sum(dim=1, keepdim=True) - masks).clamp(0, 1)
 
+    @_stage
     def encode_image(self, image: torch.Tensor):
         """image [B, 3, H, W] in [0, 1] -> ((f16, f8, f4), pix_feat)."""
         ms_image_feat = self.pixel_encoder(self._normalize(image))
         return ms_image_feat, self.pix_feat_proj(ms_image_feat[0])
 
+    @_stage
     def transform_key(self, final_pix_feat: torch.Tensor, *,
                       need_sk: bool = True, need_ek: bool = True):
         """f16 -> (key, shrinkage, selection)."""
         return self.key_proj(final_pix_feat, need_s=need_sk, need_e=need_ek)
 
+    @_stage
     def encode_mask(self, image: torch.Tensor, pix_feat: torch.Tensor,
                     sensory: torch.Tensor, masks: torch.Tensor, *,
                     deep_update: bool = True, need_weights: bool = False):
@@ -84,6 +109,7 @@ class CUTIE(nn.Module):
             summaries, logits = None, None
         return mask_value, new_sensory, summaries, logits
 
+    @_stage
     def pixel_fusion(self, pix_feat: torch.Tensor, pixel: torch.Tensor,
                      sensory: torch.Tensor, last_mask: torch.Tensor
                      ) -> torch.Tensor:
@@ -93,6 +119,7 @@ class CUTIE(nn.Module):
         return self.pixel_fuser(pix_feat, pixel, sensory, last_mask,
                                 self._get_others(last_mask))
 
+    @_stage
     def readout_query(self, pixel_readout: torch.Tensor,
                       obj_memory: Optional[torch.Tensor], *,
                       selector: Optional[torch.Tensor] = None):
@@ -101,6 +128,7 @@ class CUTIE(nn.Module):
         return self.object_transformer(pixel_readout, obj_memory,
                                        selector=selector)
 
+    @_stage
     def segment(self, ms_image_feat: List[torch.Tensor],
                 memory_readout: torch.Tensor, sensory: torch.Tensor, *,
                 selector: Optional[torch.Tensor] = None,
@@ -109,11 +137,12 @@ class CUTIE(nn.Module):
         sensory, logits = self.mask_decoder(ms_image_feat, memory_readout,
                                             sensory,
                                             update_sensory=update_sensory)
-        prob = torch.sigmoid(logits.float())
-        if selector is not None:
-            prob = prob * selector[..., None, None]
-        logits = upsample_4x(aggregate(prob, dim=1))
-        return sensory, logits, torch.softmax(logits, dim=1)
+        with fp32_island(logits):
+            prob = torch.sigmoid(logits.float())
+            if selector is not None:
+                prob = prob * selector[..., None, None]
+            logits = upsample_4x(aggregate(prob, dim=1))
+            return sensory, logits, torch.softmax(logits, dim=1)
 
     def read_memory(self, query_key, query_selection, memory_key,
                     memory_shrinkage, msk_value, obj_memory, pix_feat,

@@ -3,6 +3,10 @@
 The port's counterpart of cutie_tpu/models/layers.py (reference
 cutie/model/group_modules.py, channel_attn.py, modules.py). Module and
 parameter names follow the reference's state dict.
+
+Under amp the model's stages run under torch.autocast to bf16 (CUTIE.
+compute_dtype); the fp32 islands of cutie_tpu's precision map
+(docs/ARCHITECTURE.md section 5) run inside fp32_island on .float() inputs.
 """
 from __future__ import annotations
 
@@ -14,6 +18,12 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from cutie_tpu_torch.ops.resize import area_downsample, upsample_2x
+
+
+def fp32_island(x: torch.Tensor):
+    """A region that autocast leaves in fp32, on the device of x; the
+    region's inputs are cast with .float()."""
+    return torch.autocast(x.device.type, enabled=False)
 
 
 def flatten_group(g: torch.Tensor):
@@ -37,9 +47,11 @@ class FrozenBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # folded in fp32, applied in the input's dtype (bf16 under amp)
         scale = self.weight / torch.sqrt(self.running_var + self.eps)
         shift = self.bias - self.running_mean * scale
-        return x * scale[None, :, None, None] + shift[None, :, None, None]
+        return (x * scale.to(x.dtype)[None, :, None, None]
+                + shift.to(x.dtype)[None, :, None, None])
 
 
 class GConv2d(nn.Module):
@@ -74,8 +86,9 @@ class CAResBlock(nn.Module):
         x = self.conv1(F.relu(x))
         x = self.conv2(F.relu(x))
         pooled = x.mean(dim=(2, 3))                           # [B', C]
-        gate = torch.sigmoid(self.conv(pooled[:, None, :]))[:, 0]
-        x = x * gate[:, :, None, None]
+        with fp32_island(x):
+            gate = torch.sigmoid(self.conv(pooled.float()[:, None, :]))[:, 0]
+        x = x * gate.to(x.dtype)[:, :, None, None]
         return x + (r if self.downsample is None else self.downsample(r))
 
 
@@ -155,8 +168,9 @@ class SensoryUpdater(nn.Module):
     def forward(self, g: List[torch.Tensor], h: torch.Tensor) -> torch.Tensor:
         g = (self.g16_conv(g[0]) + self.g8_conv(area_downsample(g[1], 2))
              + self.g4_conv(area_downsample(g[2], 4)))
-        values = self.transform(torch.cat([g.float(), h.float()], dim=2))
-        return _recurrent_update(h.float(), values)
+        with fp32_island(h):
+            values = self.transform(torch.cat([g.float(), h.float()], dim=2))
+            return _recurrent_update(h.float(), values)
 
 
 class SensoryDeepUpdater(nn.Module):
@@ -168,8 +182,9 @@ class SensoryDeepUpdater(nn.Module):
                                  padding=1)
 
     def forward(self, g: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-        values = self.transform(torch.cat([g.float(), h.float()], dim=2))
-        return _recurrent_update(h.float(), values)
+        with fp32_island(h):
+            values = self.transform(torch.cat([g.float(), h.float()], dim=2))
+            return _recurrent_update(h.float(), values)
 
 
 class MaskUpsampleBlock(nn.Module):

@@ -14,6 +14,7 @@ import torch
 import torch.nn as nn
 
 from cutie_tpu_torch.config import Config
+from cutie_tpu_torch.models.layers import fp32_island
 from cutie_tpu_torch.models.positional_encoding import positional_encoding
 from cutie_tpu_torch.ops.resize import area_downsample
 
@@ -53,11 +54,12 @@ class ObjectSummarizer(nn.Module):
             pe = positional_encoding(h, w, self.embed_dim, self.pe_scale,
                                      self.pe_temperature, device=value.device)
             value = value + pe.permute(1, 2, 0)
-        value = value.float()
-        feature = self.feature_pred(value)
-        logits = self.weights_pred(value)
-        weights = torch.sigmoid(logits) * repeated_masks.float()
-        sums = torch.einsum("bkhwq,bkhwc->bkqc", weights, feature)
-        area = weights.sum(dim=(2, 3))[..., None]
-        summaries = torch.cat([sums, area], dim=-1)
+        with fp32_island(value):
+            value = value.float()
+            feature = self.feature_pred(value)
+            logits = self.weights_pred(value)
+            weights = torch.sigmoid(logits) * repeated_masks.float()
+            sums = torch.einsum("bkhwq,bkhwc->bkqc", weights, feature)
+            area = weights.sum(dim=(2, 3))[..., None]
+            summaries = torch.cat([sums, area], dim=-1)
         return summaries, (logits if need_weights else None)

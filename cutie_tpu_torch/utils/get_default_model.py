@@ -142,13 +142,14 @@ def build_model(cfg: Config, weights_npz: Optional[str] = None,
     when asked for), with weights from a reference npz state dict or an
     explicit numpy state dict. Raises if a CUDA device is asked for and
     there is none. Turns TF32 off: the port keeps cutie_tpu's fp32
-    precision map."""
+    precision map. cfg.amp=True or cfg.compute_dtype='bfloat16' builds the
+    model with bf16 conv and transformer stacks and fp32 islands, as
+    cutie_tpu's build_model does (models/cutie.py); its parameters stay
+    fp32."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_model: a CUDA device was asked for and "
                            "torch.cuda.is_available() is False")
-    if cfg.get("amp", False):
-        raise NotImplementedError("amp (bf16) inference is not ported yet")
     set_fp32_precision()
     model = CUTIE(cfg)
     if weights_npz is not None:

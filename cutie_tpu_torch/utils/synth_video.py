@@ -1,8 +1,9 @@
 """Deterministic synthetic 480p video with three objects.
 
-The port's own copy of tools/gen_golden.py:synth_frames_480: two translating
-squares and a growing rectangle on a textured background, pure numpy. The
-480p goldens tests/golden/stream480_*_trained.npz were recorded on it.
+The port's own copy of tools/gen_golden.py:synth_frames_480 and
+synth_gt_masks_480: two translating squares and a growing rectangle on a
+textured background, pure numpy. The 480p goldens
+tests/golden/stream480_*_trained.npz were recorded on it.
 """
 from __future__ import annotations
 
@@ -33,3 +34,22 @@ def synth_frames_480(t: int, h: int = 480, w: int = 854, seed: int = 9):
             mask0[y2:y2 + sq, x2:x2 + sq] = 2
             mask0[cy - g:cy + g, cx - g:cx + g] = 3
     return np.stack(frames), mask0
+
+
+def synth_gt_masks_480(t: int, h: int = 480, w: int = 854):
+    """The ground-truth index masks [t, h, w] uint8 of every frame of
+    synth_frames_480 (the port's copy of tools/gen_golden.py:
+    synth_gt_masks_480): the same geometry and drawing order, the growing
+    rectangle last, on top."""
+    masks = np.zeros((t, h, w), np.uint8)
+    sq = h // 5
+    for ti in range(t):
+        y1, x1 = h // 8 + ti * 4, w // 10 + ti * 6
+        y2, x2 = h // 2 + ti * 2, 2 * w // 3 - ti * 5
+        g = sq // 2 + ti * 3
+        cy, cx = h // 3, w // 2
+        m = masks[ti]
+        m[y1:y1 + sq, x1:x1 + sq] = 1
+        m[y2:y2 + sq, x2:x2 + sq] = 2
+        m[max(cy - g, 0):cy + g, max(cx - g, 0):cx + g] = 3
+    return masks

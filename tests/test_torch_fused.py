@@ -21,6 +21,8 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from tests.test_torch_stream import one_intra_op_thread  # noqa: E402,F401
+
 from cutie_tpu.ops.pallas_kernels import fused_topk_readout as jax_fused  # noqa: E402
 from cutie_tpu_torch.ops.read_kernel import (fused_topk_readout,  # noqa: E402
                                              radix_topk_readout_plain)

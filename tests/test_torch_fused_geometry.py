@@ -11,6 +11,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from tests.test_torch_stream import one_intra_op_thread  # noqa: E402,F401
+
 from cutie_tpu_torch.ops import read_kernel as rk  # noqa: E402
 
 D17 = dict(n=8_100, p=1_620)       # the d17 stream's read

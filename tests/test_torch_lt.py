@@ -22,7 +22,8 @@ import jax  # noqa: E402
 
 from tests.conftest import require_golden  # noqa: E402
 from tests.test_consolidation import _make_steps_and_state  # noqa: E402
-from tests.test_torch_stream import _assert_stream_close, _port_core  # noqa: E402
+from tests.test_torch_stream import (_assert_stream_close, _port_core,  # noqa: E402,F401
+                                     one_intra_op_thread)
 
 from cutie_tpu_torch.config import eval_config  # noqa: E402
 from cutie_tpu_torch.inference.state import MemoryState  # noqa: E402

@@ -17,7 +17,8 @@ import jax  # noqa: E402
 
 from tests.conftest import require_golden  # noqa: E402
 from tests.test_torch_lt import SETTINGS  # noqa: E402
-from tests.test_torch_stream import _assert_stream_close, _port_core  # noqa: E402
+from tests.test_torch_stream import (_assert_stream_close, _port_core,  # noqa: E402,F401
+                                     one_intra_op_thread)
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -13,6 +13,7 @@ torch = pytest.importorskip("torch")
 
 from tests.conftest import require_golden  # noqa: E402
 from tests.test_parity_model import assert_close  # noqa: E402
+from tests.test_torch_stream import one_intra_op_thread  # noqa: E402,F401
 
 from cutie_tpu_torch.config import eval_config  # noqa: E402
 from cutie_tpu_torch.utils.get_default_model import (build_model,  # noqa: E402

@@ -10,6 +10,8 @@ import pytest
 
 pytest.importorskip("torch")
 
+from tests.test_torch_stream import one_intra_op_thread  # noqa: E402,F401
+
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "cutie_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "cutie_tpu", "tools")

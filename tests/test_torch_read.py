@@ -32,6 +32,8 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from tests.test_torch_stream import one_intra_op_thread  # noqa: E402,F401
+
 from cutie_tpu.ops import memory as jmem  # noqa: E402
 from cutie_tpu.ops.pallas_kernels import radix_topk_readout as jax_read  # noqa: E402
 from cutie_tpu_torch.ops import memory as tmem  # noqa: E402

@@ -22,6 +22,20 @@ SETTINGS = {"mem_every": 3, "top_k": 30, "stagger_updates": 5,
             "max_mem_frames": 3, "use_long_term": False}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread(request):
+    """One torch intra-op thread for the module (or the module's
+    INTRA_OP_THREADS), restored afterwards. The suite runs in several
+    worker processes at once, each beside JAX's own threads, and torch's
+    default of one thread a core oversubscribes the CPU; a fixed count also
+    fixes torch's summation order. Every tests/test_torch_*.py module
+    imports this fixture."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(getattr(request.module, "INTRA_OP_THREADS", 1))
+    yield
+    torch.set_num_threads(old)
+
+
 def _port_core(variant, settings):
     cfg = eval_config(variant)
     cfg.merge(settings)
