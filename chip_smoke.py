@@ -46,6 +46,17 @@ Phases, each printing one JSON line with its wall seconds:
              top_k = 256 at the d17 shapes and 4096 (its state in global
              memory), the d17 stream's and lvos600's inputs; times, and each
              stage's time alone, on the last two;
+  eval       the eval harness (eval_vos, dataset d17-val, on the card, with
+             score dumps) over the stream phase's 12 frames written as a
+             DAVIS-style directory of PNGs: the saved masks held to the
+             golden, kernel #1 launched as often as in the stream phase,
+             their pixel agreement with the stream phase's id maps, and
+             merge_multi_scale over the score dump;
+  eval_lt    the same over the long-term golden's 26 frames with the
+             generic preset, whose get_dataset_cfg turns long-term mode on;
+  scripting  python -m cutie_tpu_torch.scripting_demo_add_del_objects in a
+             subprocess on the default device: objects [1] -> [1, 2] -> [2]
+             across t = 4 and t = 10, a mask for every frame;
   kernels    one line listing every ported kernel.
 The last line is {"ok": true, "device": {...}}. Any failure raises and the
 script exits non-zero. It needs a CUDA device and the repository around it.
@@ -53,7 +64,10 @@ script exits non-zero. It needs a CUDA device and the repository around it.
 import dataclasses
 import functools
 import json
+import re
 import subprocess
+import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -62,16 +76,21 @@ import torch
 from torch.autograd import DeviceType
 
 from cutie_tpu_torch.config import eval_config
+from cutie_tpu_torch.eval_vos import eval_vos
 from cutie_tpu_torch.inference import InferenceCore
 from cutie_tpu_torch.ops import cuda_build, read_kernel
 from cutie_tpu_torch.ops.memory import _float_order_key, get_similarity, topk_threshold
 from cutie_tpu_torch.ops.resize import bilinear_resize
+from cutie_tpu_torch.scripts.merge_multi_scale import merge
 from cutie_tpu_torch.utils.get_default_model import (build_model, load_torch_npz,
                                                      set_fp32_precision)
+from cutie_tpu_torch.utils.image_io import read_png, write_png
+from cutie_tpu_torch.utils.palette import davis_palette
 from cutie_tpu_torch.utils.synth_video import synth_frames_480, synth_gt_masks_480
 
 REPO = Path(__file__).resolve().parent
 GOLDEN = REPO / "tests" / "golden"
+TRAINED_WEIGHTS = GOLDEN / "state_dict_base_trained.npz"
 
 # H100 SXM data sheet: HBM3 bandwidth and fp32 (non-tensor-core) peak.
 HBM_BYTES_PER_S = 3.35e12
@@ -538,7 +557,7 @@ def phase_build():
 
 @functools.cache
 def trained_weights():
-    return load_torch_npz(str(GOLDEN / "state_dict_base_trained.npz"))
+    return load_torch_npz(str(TRAINED_WEIGHTS))
 
 
 def base_core(**settings):
@@ -615,7 +634,8 @@ def phase_stream(k=30):
     if not ok:
         raise RuntimeError("stream phase failed")
     return dict(launches=launches, max_abs=res["readout_max_abs"], case=case,
-                fps=fps_steady(frame_ms), kernel_ms_per_frame=kernel_ms, **times)
+                fps=fps_steady(frame_ms), kernel_ms_per_frame=kernel_ms,
+                id_maps=id_maps, **times)
 
 
 # tools/gen_golden.py:stream480_cfg(True), the settings the long-term golden
@@ -657,7 +677,7 @@ def phase_lt_stream(k=30):
     if not ok:
         raise RuntimeError("lt_stream phase failed")
     return dict(launches=launches, max_abs=res["readout_max_abs"], case=case,
-                **times)
+                fps=fps_steady(frame_ms), id_maps=id_maps, **times)
 
 
 def variant_result(name, rec, run, t0, ok, size=(480, 854), **extra):
@@ -900,6 +920,130 @@ def config_run_b():
             "lt_capacity": int(core.state.lt_key.shape[1])}, bool(ok)
 
 
+def write_davis_video(root, frames, mask0):
+    """frames [t, 3, H, W] (multiples of 1/255, so PNG loses nothing) as
+    root/JPEGImages/video1/*.png and mask0 as a DAVIS-palette PNG
+    root/Annotations/video1/00000.png, through the port's PNG writer."""
+    img_dir = root / "JPEGImages" / "video1"
+    mask_dir = root / "Annotations" / "video1"
+    img_dir.mkdir(parents=True)
+    mask_dir.mkdir(parents=True)
+    for ti, frame in enumerate(frames):
+        pixels = np.round(np.transpose(frame, (1, 2, 0)) * 255).astype(np.uint8)
+        write_png(str(img_dir / f"{ti:05d}.png"), pixels)
+    write_png(str(mask_dir / "00000.png"), mask0.astype(np.uint8), davis_palette)
+
+
+def phase_harness(name, golden, dataset, settings, stream, long_term):
+    """eval_vos on the card over `golden`'s synthetic video written as a
+    DAVIS-style directory, with score dumps. The saved masks, read back
+    through image_io, are held to the golden; kernel #1 must run once a
+    frame after the first, as in the stream phase `stream` of the same
+    video; get_dataset_cfg must leave long-term mode `long_term` and
+    mem_every 5; merge_multi_scale over the score dump must give the argmax
+    of the dumped scores exactly. Also reported: the saved masks' pixel
+    agreement with the stream phase's id maps and the merged masks'."""
+    t0 = time.perf_counter()
+    rec, frames, mask0 = golden_video(golden)
+    t = int(rec["t"])
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        write_davis_video(root, frames[:t], mask0)
+        cfg = eval_config("base")
+        cfg.merge({"dataset": dataset, "output_dir": str(root / "out"),
+                   "weights": str(TRAINED_WEIGHTS), "save_scores": True,
+                   "image_directory": str(root / "JPEGImages"),
+                   "mask_directory": str(root / "Annotations")})
+        cfg.merge(settings)
+        read_kernel.radix_topk_readout.launches = 0
+        read_kernel.fused_topk_readout.launches = 0
+        t1 = time.perf_counter()
+        stats = eval_vos(cfg)
+        eval_seconds = time.perf_counter() - t1
+        launches = {"radix_topk_readout": read_kernel.radix_topk_readout.launches,
+                    "fused_topk_readout": read_kernel.fused_topk_readout.launches}
+        out = root / "out"
+        saved = [read_png(str(out / "Annotations" / "video1" / f"{ti:05d}.png"))[0]
+                 for ti in range(t)]
+        merge([str(out / "Scores")], str(out / "merged"), dataset="D", num_proc=1)
+        scores = out / "Scores" / "video1"
+        backward = {int(k): int(v)
+                    for k, v in dict(np.load(scores / "backward.npz")).items()}
+        merged_ok, merged_agree = True, []
+        for ti in range(t):
+            winner = np.load(scores / f"{ti:05d}.npz")["prob"].argmax(0)
+            expect = np.zeros_like(winner, dtype=np.uint8)
+            for obj_id, tmp_idx in backward.items():
+                expect[winner == tmp_idx] = obj_id
+            merged = read_png(str(out / "merged" / "video1" / f"{ti:05d}.png"))[0]
+            merged_ok &= bool((merged == expect).all())
+            merged_agree.append(float((merged == saved[ti]).mean()))
+    ious = stream_ious(saved, rec["masks"])
+    agree = [float((a == b).mean()) for a, b in zip(saved, stream["id_maps"])]
+    radix = launches["radix_topk_readout"]
+    ok = (radix == t - 1 == stream["launches"]["radix_topk_readout"]
+          and stats["total_frames"] == t and cfg.use_long_term is long_term
+          and cfg.mem_every == 5 and iou_ok(ious) and merged_ok)
+    emit({"phase": name, "dataset": dataset, "frames": t,
+          "total_frames": stats["total_frames"], "harness_fps": stats["fps"],
+          "stream_phase_fps_frames_3_on": stream["fps"],
+          "eval_vos_seconds": eval_seconds,
+          "use_long_term": cfg.use_long_term, "mem_every": cfg.mem_every,
+          "size": cfg.size, "launches": launches,
+          "iou_median": float(np.median(ious)), "iou_min": float(ious.min()),
+          "agreement_with_stream_min": min(agree),
+          "agreement_with_stream_mean": float(np.mean(agree)),
+          "merged_equals_dump_argmax": merged_ok,
+          "merged_agreement_with_saved_min": min(merged_agree),
+          "ok": bool(ok), "seconds": time.perf_counter() - t0})
+    if not ok:
+        raise RuntimeError(f"{name} phase failed")
+    return launches
+
+
+def phase_eval(stream):
+    """The d17-val preset (size 480: the 480x854 frames are not resized)
+    over the stream phase's 12 frames."""
+    return phase_harness("eval", "stream480_work_trained.npz", "d17-val", {},
+                         stream, long_term=False)
+
+
+def phase_eval_lt(lt):
+    """The generic preset, whose get_dataset_cfg turns long-term mode on,
+    at the long-term golden's budgets over its 26 frames."""
+    return phase_harness("eval_lt", "stream480_lt_trained.npz", "generic",
+                         {"long_term": LT_SETTINGS["long_term"]}, lt,
+                         long_term=True)
+
+
+ADD_DEL_OBJECTS = {t: [1] for t in range(4)} | {t: [1, 2] for t in range(4, 10)} \
+    | {t: [2] for t in range(10, 14)}
+
+
+def phase_scripting():
+    """The add/delete scripting demo as a user runs it, in a subprocess, on
+    the default device (the card), with the trained base weights."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "demo"
+        proc = subprocess.run(
+            [sys.executable, "-m", "cutie_tpu_torch.scripting_demo_add_del_objects",
+             "--model", "base", "--weights", str(TRAINED_WEIGHTS),
+             "--output", str(out)],
+            cwd=REPO, capture_output=True, text=True, timeout=600)
+        pngs = sorted(p.name for p in out.glob("*.png")) if out.exists() else []
+    objects = {int(m.group(1)): json.loads(m.group(2))
+               for m in re.finditer(r"^t=(\d+): objects (\[.*\])$", proc.stdout, re.M)}
+    ok = (proc.returncode == 0 and objects == ADD_DEL_OBJECTS
+          and pngs == [f"{t:05d}.png" for t in range(14)])
+    emit({"phase": "scripting", "returncode": proc.returncode,
+          "objects_by_frame": objects, "masks_written": len(pngs),
+          "stderr_tail": proc.stderr[-2000:] if not ok else "",
+          "ok": bool(ok), "seconds": time.perf_counter() - t0})
+    if not ok:
+        raise RuntimeError("scripting phase failed")
+
+
 def phase_kernel(lt_case, k=30):
     t0 = time.perf_counter()
     rng = np.random.default_rng(0)
@@ -1048,6 +1192,9 @@ def main():
     ares = phase_amp_stream(sres)
     by_path["amp_stream"] = ares["launches"]
     by_path["config"] = phase_config()["launches"]
+    by_path["eval"] = phase_eval(sres)
+    by_path["eval_lt"] = phase_eval_lt(lres)
+    phase_scripting()
     kres = phase_kernel(lres["case"])
     fres = phase_fused(sres["case"], kres["cases"]["lvos600"])
     t0 = time.perf_counter()

@@ -53,6 +53,10 @@ class InferenceCore:
         self.aux = None
         self.steps = StepFunctions(network, cfg)
         self.image_feature_store = ImageFeatureStore(self.steps)
+        if cfg.get("mem_every") is None or cfg.get("use_long_term") is None:
+            # eval_config leaves both to the dataset preset
+            raise ValueError("cfg.mem_every and cfg.use_long_term are unset: "
+                             "call config.get_dataset_cfg(cfg) or set them")
         self.mem_every = cfg.mem_every
         stagger_updates = cfg.stagger_updates
         if stagger_updates >= self.mem_every:

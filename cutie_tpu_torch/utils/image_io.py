@@ -1,0 +1,322 @@
+"""Image files for the eval harness and the scripts, without PIL.
+
+The port's counterpart of every PIL.Image call in cutie_tpu's readers,
+result saver, demos and scripts:
+- a PNG codec in zlib and numpy. It reads 8-bit grayscale, RGB, palette,
+  grayscale-alpha and RGBA images, non-interlaced, with all five row
+  filters; palette and grayscale images also packed at 1, 2 or 4 bits,
+  decoded as Pillow decodes them (read_png). It writes 8-bit palette,
+  grayscale and RGB images (write_png). Interlaced and 16-bit files raise;
+- Pillow's BILINEAR and NEAREST resizes, bit for bit (resize_bilinear,
+  resize_nearest), and the readers' shorter-edge resize (resize_shorter);
+- JPEG through Pillow, imported only when a JPEG is read or written
+  (require_pillow raises an ImportError that names Pillow when it is
+  missing).
+"""
+from __future__ import annotations
+
+import math
+import struct
+import zlib
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# colour type -> (channels, Pillow's mode)
+_COLOR_TYPES = {0: (1, "L"), 2: (3, "RGB"), 3: (1, "P"), 4: (2, "LA"),
+                6: (4, "RGBA")}
+_LOW_BIT_TYPES = (0, 3)   # the colour types that may pack 1, 2 or 4 bits
+
+
+def require_pillow():
+    """PIL.Image, for JPEG files; an ImportError naming Pillow if it is not
+    installed."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(
+            "JPEG images need Pillow (the PIL package), which is not "
+            "installed; PNG images are read and written without it") from e
+    return Image
+
+
+def is_png(path: str) -> bool:
+    with open(path, "rb") as f:
+        return f.read(len(PNG_SIGNATURE)) == PNG_SIGNATURE
+
+
+# ------------------------------------------------------------------ PNG read
+
+def _chunks(data: bytes):
+    """(type, payload) of every chunk, each CRC checked."""
+    pos = len(PNG_SIGNATURE)
+    while pos + 12 <= len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        kind = data[pos + 4:pos + 8]
+        payload = data[pos + 8:pos + 8 + length]
+        (crc,) = struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])
+        if zlib.crc32(kind + payload) != crc:
+            raise ValueError(f"PNG chunk {kind!r}: CRC mismatch")
+        yield kind, payload
+        if kind == b"IEND":
+            return
+        pos += 12 + length
+    raise ValueError("PNG ends without an IEND chunk")
+
+
+def _unfilter(raw: np.ndarray, filters: np.ndarray, bpp: int) -> np.ndarray:
+    """Undo the PNG row filters. raw [H, rowbytes] uint8 (the filter bytes
+    removed), filters [H]; bpp: bytes a filter unit (a pixel, or a byte
+    where pixels are smaller). Pixel (r, c) depends on (r, c-1), (r-1, c)
+    and (r-1, c-1), so the anti-diagonals r + c = d are computed in turn,
+    each at once, in a skewed copy where every neighbour is a slice:
+    S[d + 2, r + 1] holds unit (r, d - r)."""
+    if filters.max() > 4:
+        raise ValueError(f"PNG row filter {int(filters.max())} is not defined")
+    if not filters.any():
+        return raw
+    h, rowbytes = raw.shape
+    units = rowbytes // bpp
+    diagonals = h + units - 1
+    r3 = raw.reshape(h, units, bpp).astype(np.int16)
+    dd = np.arange(diagonals)[:, None]
+    rr = np.arange(h)[None, :]
+    col = dd - rr
+    inside = (col >= 0) & (col < units)
+    raw_s = r3[rr, np.clip(col, 0, units - 1)] * inside[..., None]
+    s = np.zeros((diagonals + 2, h + 1, bpp), np.int16)
+    f = filters[:, None]
+    is_sub, is_up, is_avg, is_paeth = (f == 1), (f == 2), (f == 3), (f == 4)
+    for d in range(diagonals):
+        r0, r1 = max(0, d - units + 1), min(h - 1, d) + 1
+        a = s[d + 1, r0 + 1:r1 + 1]   # left
+        b = s[d + 1, r0:r1]           # up
+        c = s[d, r0:r1]               # up-left
+        pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+        paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+        pred = (is_sub[r0:r1] * a + is_up[r0:r1] * b
+                + is_avg[r0:r1] * ((a + b) >> 1) + is_paeth[r0:r1] * paeth)
+        s[d + 2, r0 + 1:r1 + 1] = (raw_s[d, r0:r1] + pred) & 255
+    rows = np.arange(h)[:, None]
+    out = s[rows + np.arange(units)[None, :] + 2, rows + 1]
+    return out.astype(np.uint8).reshape(h, rowbytes)
+
+
+def _unpack(rows: np.ndarray, bits: int, width: int) -> np.ndarray:
+    """[H, rowbytes] packed samples of `bits` bits -> [H, width] uint8."""
+    per = 8 // bits
+    shifts = (8 - bits) - bits * np.arange(per)
+    vals = (rows[:, :, None] >> shifts.astype(np.uint8)) & ((1 << bits) - 1)
+    return vals.reshape(rows.shape[0], -1)[:, :width].astype(np.uint8)
+
+
+def read_png(path: str) -> Tuple[np.ndarray, str, Optional[List[int]]]:
+    """(pixels, mode, palette) of a PNG file, as np.array(Image.open(path)),
+    its .mode and .getpalette() give them: [H, W] for 'P', 'L' and '1'
+    (bool), [H, W, C] for 'LA', 'RGB' and 'RGBA'; the palette (the PLTE
+    entries, 3 ints each) for 'P', else None."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if not data.startswith(PNG_SIGNATURE):
+        raise ValueError(f"{path} is not a PNG file")
+    header, plte, idat = None, None, []
+    for kind, payload in _chunks(data):
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", payload)
+        elif kind == b"PLTE":
+            plte = payload
+        elif kind == b"IDAT":
+            idat.append(payload)
+    if header is None:
+        raise ValueError(f"{path}: no IHDR chunk")
+    w, h, bits, color_type, _, _, interlace = header
+    if color_type not in _COLOR_TYPES:
+        raise ValueError(f"{path}: PNG colour type {color_type} is not defined")
+    channels, mode = _COLOR_TYPES[color_type]
+    if bits == 16:
+        raise ValueError(f"{path}: 16-bit PNG images are not supported")
+    if bits != 8 and not (bits in (1, 2, 4) and color_type in _LOW_BIT_TYPES):
+        raise ValueError(f"{path}: {bits}-bit samples in PNG colour type "
+                         f"{color_type} are not defined")
+    if interlace:
+        raise ValueError(f"{path}: interlaced PNG images are not supported")
+    if color_type == 3 and plte is None:
+        raise ValueError(f"{path}: a palette image without a PLTE chunk")
+    rowbytes = (w * channels * bits + 7) // 8
+    stream = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if stream.size != h * (rowbytes + 1):
+        raise ValueError(f"{path}: image data of {stream.size} bytes, "
+                         f"expected {h * (rowbytes + 1)}")
+    stream = stream.reshape(h, rowbytes + 1)
+    rows = _unfilter(stream[:, 1:], stream[:, 0], max(1, channels * bits // 8))
+    if bits < 8:
+        pixels = _unpack(rows, bits, w)
+        if color_type == 0:
+            if bits == 1:
+                mode, pixels = "1", pixels.astype(bool)
+            else:
+                pixels = pixels * np.uint8(255 // ((1 << bits) - 1))
+    elif channels == 1:
+        pixels = rows.copy()
+    else:
+        pixels = rows.reshape(h, w, channels).copy()
+    palette = list(plte) if color_type == 3 else None
+    return pixels, mode, palette
+
+
+def to_rgb(pixels: np.ndarray, mode: str,
+           palette: Optional[List[int]] = None) -> np.ndarray:
+    """[H, W, 3] uint8, as Image.convert('RGB') makes it from these
+    pixels (read_png's result)."""
+    if mode == "RGB":
+        return pixels
+    if mode == "RGBA":
+        return np.ascontiguousarray(pixels[..., :3])
+    if mode == "LA":
+        pixels = pixels[..., 0]
+    if mode == "P":
+        table = np.zeros((256, 3), np.uint8)
+        entries = np.asarray(palette, np.uint8).reshape(-1, 3)[:256]
+        table[:len(entries)] = entries
+        return table[pixels]
+    if mode == "1":
+        pixels = pixels.astype(np.uint8) * np.uint8(255)
+    return np.repeat(pixels[..., None], 3, axis=-1)
+
+
+def read_image(path: str) -> np.ndarray:
+    """An image file as [H, W, 3] uint8 RGB (Image.open(path).convert('RGB')):
+    PNG by read_png, anything else through Pillow."""
+    if is_png(path):
+        return to_rgb(*read_png(path))
+    image = require_pillow().open(path)
+    return np.asarray(image.convert("RGB"), np.uint8)
+
+
+# ----------------------------------------------------------------- PNG write
+
+def _chunk(kind: bytes, payload: bytes) -> bytes:
+    return (struct.pack(">I", len(payload)) + kind + payload
+            + struct.pack(">I", zlib.crc32(kind + payload)))
+
+
+def write_png(path: str, pixels: np.ndarray, palette=None) -> None:
+    """Write [H, W] uint8 (a palette image when `palette` is given, its
+    entries as 3 ints or bytes each, else grayscale) or [H, W, 3] uint8 RGB
+    as an 8-bit PNG, every row unfiltered."""
+    pixels = np.asarray(pixels)
+    if pixels.dtype != np.uint8:
+        raise ValueError(f"write_png takes uint8 pixels, not {pixels.dtype}")
+    if pixels.ndim == 2:
+        color_type = 0 if palette is None else 3
+    elif pixels.ndim == 3 and pixels.shape[2] == 3 and palette is None:
+        color_type = 2
+    else:
+        raise ValueError(f"write_png: pixels of shape {pixels.shape} "
+                         f"{'with' if palette is not None else 'without'} "
+                         f"a palette")
+    h, w = pixels.shape[:2]
+    rows = np.zeros((h, 1 + pixels[0].size), np.uint8)
+    rows[:, 1:] = pixels.reshape(h, -1)
+    out = [PNG_SIGNATURE,
+           _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0))]
+    if palette is not None:
+        plte = bytes(bytearray(palette))[:768]
+        if not plte or len(plte) % 3:
+            raise ValueError(f"a palette of {len(plte)} bytes")
+        out.append(_chunk(b"PLTE", plte))
+    out.append(_chunk(b"IDAT", zlib.compress(rows.tobytes())))
+    out.append(_chunk(b"IEND", b""))
+    with open(path, "wb") as f:
+        f.write(b"".join(out))
+
+
+def write_jpeg(path: str, rgb: np.ndarray) -> None:
+    """[H, W, 3] uint8 as a JPEG, through Pillow at its default quality."""
+    require_pillow().fromarray(np.ascontiguousarray(rgb, np.uint8)).save(path)
+
+
+# ------------------------------------------------------------------- resizes
+
+def _bilinear_coefficients(in_size: int, out_size: int):
+    """Pillow's precompute_coeffs (Resample.c) for the triangle filter,
+    then normalize_coeffs_8bpc: per output index its first input index,
+    and [out, taps] coefficients fixed to 22 fractional bits."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 1.0 * filterscale
+    taps = int(math.ceil(support)) * 2 + 1
+    center = (np.arange(out_size) + 0.5) * scale
+    xmin = np.maximum(np.trunc(center - support + 0.5), 0).astype(np.int64)
+    xmax = np.minimum(np.trunc(center + support + 0.5), in_size).astype(np.int64)
+    count = xmax - xmin
+    j = np.arange(taps)[None, :]
+    w = np.maximum(1.0 - np.abs((j + xmin[:, None] - center[:, None] + 0.5)
+                                * (1.0 / filterscale)), 0.0)
+    w = np.where(j < count[:, None], w, 0.0)
+    total = np.zeros(out_size)
+    for t in range(taps):   # in C's order: the sum is sequential
+        total = total + w[:, t]
+    w = np.where(total[:, None] != 0.0, w / np.where(total == 0, 1, total)[:, None], w)
+    fixed = np.trunc(0.5 + w * (1 << 22)).astype(np.int64)
+    return xmin, fixed
+
+
+def _bilinear_pass(img: np.ndarray, axis: int, out_size: int) -> np.ndarray:
+    """One of Pillow's two 8-bit passes along `axis`: each output the
+    fixed-point sum of its taps, rounded (+2^21 >> 22) and clipped."""
+    in_size = img.shape[axis]
+    xmin, fixed = _bilinear_coefficients(in_size, out_size)
+    src = np.moveaxis(img, axis, 0).astype(np.int64)
+    acc = np.full((out_size,) + src.shape[1:], 1 << 21, np.int64)
+    shape = (out_size,) + (1,) * (src.ndim - 1)
+    for t in range(fixed.shape[1]):
+        idx = np.minimum(xmin + t, in_size - 1)
+        acc += src[idx] * fixed[:, t].reshape(shape)
+    out = np.clip(acc >> 22, 0, 255).astype(np.uint8)
+    return np.moveaxis(out, 0, axis)
+
+
+def resize_bilinear(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """Image.resize((out_w, out_h), Image.BILINEAR) of [H, W] or [H, W, C]
+    uint8, bit for bit: a horizontal pass, then a vertical one, each only
+    where that size changes."""
+    img = np.asarray(img, np.uint8)
+    if img.shape[1] != out_w:
+        img = _bilinear_pass(img, 1, out_w)
+    if img.shape[0] != out_h:
+        img = _bilinear_pass(img, 0, out_h)
+    return img
+
+
+def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
+    """Pillow's ImagingScaleAffine: source index trunc(x_k), x_0 = s / 2,
+    x_{k+1} = x_k + s, s = in / out, accumulated in float64."""
+    s = in_size / out_size
+    steps = np.full(out_size, s)
+    steps[0] = s * 0.5
+    return np.minimum(np.add.accumulate(steps).astype(np.int64), in_size - 1)
+
+
+def resize_nearest(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """Image.resize((out_w, out_h), Image.NEAREST) of [H, W] or [H, W, C],
+    bit for bit (any dtype)."""
+    img = np.asarray(img)
+    ys = _nearest_index(img.shape[0], out_h)
+    xs = _nearest_index(img.shape[1], out_w)
+    return img[ys[:, None], xs[None, :]]
+
+
+def resize_shorter(img: np.ndarray, size: int, bilinear: bool) -> np.ndarray:
+    """cutie_tpu/data/video_reader.py:_resize_shorter: the shorter side to
+    `size` (the other rounded as there) by Pillow's BILINEAR (images) or
+    NEAREST (masks); unchanged when it is already that size."""
+    h, w = img.shape[:2]
+    if min(h, w) == size:
+        return img
+    if h < w:
+        new_h, new_w = size, round(w * size / h)
+    else:
+        new_h, new_w = round(h * size / w), size
+    return (resize_bilinear if bilinear else resize_nearest)(img, new_h, new_w)

@@ -1,9 +1,12 @@
 """Rules the port's package keeps: it imports neither JAX nor cutie_tpu,
 chip_smoke.py imports neither those nor tools/, no module-level import of
-the JAX package's optional dependencies (PIL, cv2, yaml), and the CUDA
+the JAX package's optional dependencies (PIL, cv2, hickle, yaml), checked in
+the source and by importing every module with them blocked, and the CUDA
 sources include no PyTorch header (a plain-C library built by nvcc in
 seconds, not torch.utils.cpp_extension)."""
 import ast
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -15,7 +18,7 @@ from tests.test_torch_stream import one_intra_op_thread  # noqa: E402,F401
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "cutie_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "cutie_tpu", "tools")
-NOT_AT_MODULE_LEVEL = ("PIL", "cv2", "yaml")
+NOT_AT_MODULE_LEVEL = ("PIL", "cv2", "hickle", "yaml")
 
 
 def _imports(path: Path):
@@ -39,6 +42,27 @@ def test_port_imports(path):
         assert name not in FORBIDDEN, f"{path} imports {name}"
         if module_level:
             assert name not in NOT_AT_MODULE_LEVEL, f"{path} imports {name}"
+
+
+def test_every_module_imports_without_optional_packages():
+    """A fresh interpreter with PIL, cv2, hickle and yaml blocked (None in
+    sys.modules, so that importing them raises) imports every module of the
+    port and chip_smoke.py: the card's machine has none of them."""
+    modules = [".".join(p.relative_to(REPO).with_suffix("").parts)
+               for p in PY_FILES]
+    modules = [m[:-len(".__init__")] if m.endswith(".__init__") else m
+               for m in modules]
+    code = (f"import importlib, sys\n"
+            f"sys.modules.update(dict.fromkeys({NOT_AT_MODULE_LEVEL!r}))\n"
+            f"for name in {modules!r}:\n"
+            f"    importlib.import_module(name)\n"
+            f"print(len({modules!r}))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, timeout=300,
+                         capture_output=True, text=True)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip() == str(len(modules))
+    assert {"cutie_tpu_torch.eval_vos", "cutie_tpu_torch.scripting_demo",
+            "cutie_tpu_torch.utils.results", "chip_smoke"} <= set(modules)
 
 
 def test_cuda_sources_are_plain_c():
