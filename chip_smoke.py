@@ -57,6 +57,20 @@ Phases, each printing one JSON line with its wall seconds:
   scripting  python -m cutie_tpu_torch.scripting_demo_add_del_objects in a
              subprocess on the default device: objects [1] -> [1, 2] -> [2]
              across t = 4 and t = 10, a mask for every frame;
+  train      the training step (training/trainer.py:Trainer.do_pass) on
+             batches of the synthetic video made in memory, cutie-base from
+             the trained test weights: pre-training (single-object, batch
+             2, T=3, 384x384, fp32, remat), the hand-off into a multi-object
+             model, main training from there (batch 2, T=8, 480x480, 3
+             objects, 12,544 points, amp, remat; losses finite and
+             descending over six steps, every aux term, fp32 parameters
+             that moved), each stage also without remat, and main training
+             straight from the trained weights; ms a step, frames a second,
+             peak memory, one profiled step's largest kernels and busy
+             share; the fp32 step on the card against the CPU (outputs and
+             every parameter's gradient, TRAIN_OUT_RTOL, TRAIN_GRAD_RTOL);
+             the training read's direct and expanded similarity (bytes kept
+             for the backward, ms); neither read kernel is launched;
   kernels    one line listing every ported kernel.
 The last line is {"ok": true, "device": {...}}. Any failure raises and the
 script exits non-zero. It needs a CUDA device and the repository around it.
@@ -79,10 +93,16 @@ from cutie_tpu_torch.config import eval_config
 from cutie_tpu_torch.eval_vos import eval_vos
 from cutie_tpu_torch.inference import InferenceCore
 from cutie_tpu_torch.ops import cuda_build, read_kernel
-from cutie_tpu_torch.ops.memory import _float_order_key, get_similarity, topk_threshold
+from cutie_tpu_torch.ops.memory import (_float_order_key, get_similarity,
+                                        get_similarity_expanded, readout,
+                                        softmax_affinity, topk_threshold)
 from cutie_tpu_torch.ops.resize import bilinear_resize
 from cutie_tpu_torch.scripts.merge_multi_scale import merge
-from cutie_tpu_torch.utils.get_default_model import (build_model, load_torch_npz,
+from cutie_tpu_torch.train import train_config
+from cutie_tpu_torch.training.train_forward import train_forward
+from cutie_tpu_torch.training.trainer import Trainer
+from cutie_tpu_torch.utils.get_default_model import (apply_object_surgery, build_model,
+                                                     load_torch_npz,
                                                      set_fp32_precision)
 from cutie_tpu_torch.utils.image_io import read_png, write_png
 from cutie_tpu_torch.utils.palette import davis_palette
@@ -753,15 +773,16 @@ def phase_adddel_stream():
                           launches_after_deletion=sum(per_frame[8:]))
 
 
-def amp_stage_dtypes(model, frame, n=2):
+def amp_stage_dtypes(model, frame, n=2, grad=False):
     """{stage: output dtypes} of the model's stages on one frame [3, H, W]
-    (H, W multiples of 16) and n empty objects, on the model's device."""
+    (H, W multiples of 16) and n empty objects, on the model's device;
+    with autograd recording when grad (as in training)."""
     dev = model.pixel_mean.device
     mc = model.model_cfg
     h, w = frame.shape[-2] // 16, frame.shape[-1] // 16
     ones = torch.ones(1, n, device=dev)
     names = lambda xs: [str(x.dtype).replace("torch.", "") for x in xs]
-    with torch.no_grad():
+    with torch.set_grad_enabled(grad):
         x = torch.as_tensor(frame, device=dev)[None]
         (f16, f8, f4), pix = model.encode_image(x)
         sens = torch.zeros(1, n, mc.sensory_dim, h, w, device=dev)
@@ -1044,6 +1065,272 @@ def phase_scripting():
         raise RuntimeError("scripting phase failed")
 
 
+# ------------------------------------------------------------------ training
+
+TRAIN_OUT_KEYS = ("logits", "logits_low", "sensory_logits", "q_logits")
+# card against CPU (the training step's fp32 path, TF32 off): each output
+# within 1e-3 of its largest value; each parameter's gradient within 3e-2
+# of its norm (tests/test_torch_training.py's bar against cutie_tpu), a
+# norm below 1e-6 of the largest counted at that floor
+TRAIN_OUT_RTOL, TRAIN_GRAD_RTOL = 1e-3, 3e-2
+
+
+def train_batch(t, size, num_objects, batch, device):
+    """A training batch made in memory: the synthetic video drawn at
+    size x size (numpy seeds 9, 10, ...; every second sequence runs
+    backwards), its class maps with objects 1..num_objects as classes, the
+    first frame's one-hot and an all-ones selector, on `device`."""
+    frames, cls = [], []
+    for bi in range(batch):
+        f, _ = synth_frames_480(t, size, size, seed=9 + bi)
+        m = synth_gt_masks_480(t, size, size)
+        c = np.where(m <= num_objects, m, 0).astype(np.uint8)
+        if bi % 2:
+            f, c = f[::-1], c[::-1]
+        frames.append(f)
+        cls.append(c)
+    cls = np.stack(cls)
+    first = cls[:, 0, None] == np.arange(1, num_objects + 1)[None, :, None, None]
+    data = {"frames": np.stack(frames), "first_frame_gt": first.astype(np.float32),
+            "selector": np.ones((batch, num_objects), np.float32), "cls_gt": cls}
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in data.items()}
+
+
+def train_steps(trainer, data, steps, first_it=0):
+    """`steps` do_pass steps, each synchronised, with the same seeded draws
+    every step (one fixed objective, so that a lower loss means descent).
+    Returns (each step's losses, each step's ms, peak bytes allocated over
+    the steps after the first)."""
+    losses, ms = [], []
+    for i in range(steps):
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = trainer.do_pass(data, first_it + i, torch.Generator().manual_seed(0))
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t1))
+        losses.append({k: v.item() for k, v in out.items()})
+    return losses, ms, torch.cuda.max_memory_allocated()
+
+
+def profiled_step(trainer, data, it, step_ms):
+    """One do_pass under torch.profiler: device time, kernel launches, the
+    ten largest kernels, and the busy share against `step_ms`, the
+    unprofiled step time."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        trainer.do_pass(data, it, torch.Generator().manual_seed(0))
+        torch.cuda.synchronize()
+    evs = [ev for ev in prof.key_averages()
+           if getattr(ev, "device_type", None) == DeviceType.CUDA
+           and getattr(ev, "self_device_time_total", 0) > 0]
+    kernel_ms = sum(ev.self_device_time_total for ev in evs) / 1e3
+    top = sorted(evs, key=lambda ev: -ev.self_device_time_total)[:10]
+    return {"kernel_ms": kernel_ms, "device_ops": sum(ev.count for ev in evs),
+            "busy_share": kernel_ms / step_ms if kernel_ms else None,
+            "top_kernels": [{"name": ev.key[:100], "count": ev.count,
+                             "ms": ev.self_device_time_total / 1e3} for ev in top]}
+
+
+def run_stage(name, cfg, stage, model, data, steps, profile=False,
+              require_descent=True):
+    """Train `model` for `steps` steps of `stage` on `data`: losses, ms a
+    step (mean over the steps after the first), sequences and frames a
+    second, peak memory; the checks of tests/test_training.py:152-172 (the
+    last loss below the first over three steps or more, when
+    require_descent)."""
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    trainer = Trainer(cfg, stage, model)
+    losses, ms, peak = train_steps(trainer, data, steps)
+    b, t = data["frames"].shape[:2]
+    step_ms = float(np.mean(ms[1:] or ms))
+    keys = set(losses[-1])
+    levels = cfg.model.object_transformer.num_blocks + 1
+    want = ({"loss_ce", "loss_dice", "aux_sensory_ce", "aux_sensory_dice", "total_loss"}
+            | {f"aux_query_{k}_l{level}" for k in ("ce", "dice") for level in range(levels)})
+    unchanged = [n for n, p in model.named_parameters() if torch.equal(p, before[n])]
+    res = {"stage": name, "batch": b, "frames": t, "size": list(data["frames"].shape[-2:]),
+           "objects": int(data["selector"].shape[1]), "amp": bool(stage.amp),
+           "remat": bool(stage.remat), "points": stage.train_num_points,
+           "ms_per_step": ms, "step_ms_after_first": step_ms,
+           "sequences_per_s": b / (step_ms / 1e3), "frames_per_s": b * t / (step_ms / 1e3),
+           "peak_allocated_gib": peak / 2 ** 30,
+           "total_loss": [x["total_loss"] for x in losses],
+           "finite": all(np.isfinite(v) for x in losses for v in x.values()),
+           "loss_keys_ok": want <= keys,
+           "params_fp32": all(p.dtype == torch.float32 for p in model.parameters()),
+           "params_unchanged": unchanged}
+    if steps > 2:
+        res["last_below_first"] = losses[-1]["total_loss"] < losses[0]["total_loss"]
+    if profile:
+        res["profiled_step"] = profiled_step(trainer, data, steps, step_ms)
+    res["ok"] = (res["finite"] and res["loss_keys_ok"] and res["params_fp32"]
+                 and (res.get("last_below_first", True) or not require_descent)
+                 and len(unchanged) <= 0.05 * len(before))
+    return res, trainer
+
+
+def main_training_cfg(amp=True):
+    cfg = train_config()
+    cfg.amp = amp
+    stage = cfg.main_training.copy()
+    stage.batch_size = 2
+    return cfg, stage
+
+
+def read_memory_forms(b=2, p=900, t=3, ck=64, cv=256, o=3):
+    """The training read's similarity, softmax and readout at main-training
+    shapes (B=2, 30x30 queries, 3 memory frames) in the direct form (the
+    port's get_similarity, the read's form before the expanded one) and the
+    expanded form: bytes autograd keeps for the backward, peak bytes, and
+    the forward and backward's ms."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    mk = torch.randn(b, t * p, ck, device=dev, generator=g).requires_grad_()
+    qk = torch.randn(b, p, ck, device=dev, generator=g).requires_grad_()
+    qe = torch.rand(b, p, ck, device=dev, generator=g).requires_grad_()
+    ms = (1 + torch.rand(b, t * p, device=dev, generator=g)).requires_grad_()
+    mv = torch.randn(b, o, t * p, cv, device=dev, generator=g).requires_grad_()
+    res = {}
+    for name, form in (("direct", get_similarity), ("expanded", get_similarity_expanded)):
+        def run():
+            return readout(softmax_affinity(form(mk, ms, qk, qe)), mv)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = run()
+        torch.cuda.synchronize()
+        kept = torch.cuda.memory_allocated() - base - out.numel() * 4
+        peak = torch.cuda.max_memory_allocated() - base
+        del out
+        res[name] = {"saved_for_backward_mib": kept / 2 ** 20,
+                     "peak_mib": peak / 2 ** 20,
+                     "fwd_bwd_ms": cuda_time_ms(lambda: run().sum().backward(),
+                                                iters=3, warmup=1)}
+    return res
+
+
+def grads_of_train_forward(model, data, stage, weights):
+    """train_forward's outputs and every parameter's gradient of the linear
+    functional sum(weights[k] * out[k]), on the CPU."""
+    model.zero_grad(set_to_none=True)
+    out = train_forward(model, data, torch.Generator().manual_seed(0), stage)
+    sum((out[k] * weights[k].to(out[k].device)).sum() for k in TRAIN_OUT_KEYS).backward()
+    return ({k: v.detach().cpu() for k, v in out.items()},
+            {n: p.grad.detach().cpu() for n, p in model.named_parameters()})
+
+
+def card_against_cpu():
+    """The fp32 training step (TF32 off) on the card and on the CPU in this
+    process: cutie-base width, batch 1, T=3, 192x192, 2 objects,
+    num_ref_frames 2, deep_update_prob 0 (nothing random on the path)."""
+    cfg, stage = main_training_cfg(amp=False)
+    stage.merge({"seq_length": 3, "num_ref_frames": 2, "deep_update_prob": 0.0,
+                 "remat": False})
+    rng = np.random.default_rng(0)
+    runs = []
+    for device in ("cuda", "cpu"):
+        model = build_model(cfg, device=device, state_dict=trained_weights())
+        data = train_batch(3, 192, 2, 1, device)
+        if not runs:
+            with torch.no_grad():
+                shapes = {k: v.shape for k, v in train_forward(
+                    model, data, torch.Generator(), stage).items()}
+            weights = {k: torch.from_numpy(rng.normal(size=shapes[k]).astype(np.float32))
+                       for k in TRAIN_OUT_KEYS}
+        runs.append(grads_of_train_forward(model, data, stage, weights))
+        del model
+    (out_c, g_c), (out_h, g_h) = runs
+    out_err = {k: float((out_c[k] - out_h[k]).abs().max() / out_h[k].abs().max())
+               for k in TRAIN_OUT_KEYS}
+    floor = 1e-6 * max(float(v.norm()) for v in g_h.values())
+    grad_err = {n: float((g_c[n] - g_h[n]).norm()) / max(float(g_h[n].norm()), floor)
+                for n in g_h}
+    worst = sorted(grad_err.items(), key=lambda kv: -kv[1])[:5]
+    return {"output_rel_err": out_err, "grad_rel_err_max": worst[0][1],
+            "grad_rel_err_worst": worst,
+            "grad_rel_err_median": float(np.median(list(grad_err.values()))),
+            "ok": (max(out_err.values()) <= TRAIN_OUT_RTOL
+                   and worst[0][1] <= TRAIN_GRAD_RTOL)}
+
+
+def phase_train():
+    """The training step on the card, cutie-base from the trained test
+    weights. Pre-training: a single-object model (the weights through the
+    object surgery), batch 2, T=3, 384x384, 8,192 points, fp32, remat,
+    three steps, then two without remat. The hand-off: through the surgery
+    into a multi-object model, loaded strictly; main training from there at
+    full width (batch 2, T=8, 480x480, 3 objects, 12,544 points, amp,
+    remat) for six steps, one of them profiled, then two without remat.
+    Main training straight from the trained weights: six steps, whose loss
+    rises after the first (AdamW's first step moves every parameter by
+    about the LR, and these weights already fit the synthetic task), so
+    their descent is reported, not required. Then the fp32 step on the card
+    against the CPU, and the training read's two similarity forms."""
+    t0 = time.perf_counter()
+    read_kernel.radix_topk_readout.launches = 0
+    read_kernel.fused_topk_readout.launches = 0
+    dev = torch.device("cuda")
+    res = {}
+
+    pcfg = train_config()
+    pcfg.amp = False
+    pre = pcfg.pre_training.copy()
+    pre.batch_size = 2
+    pdata = train_batch(pre.seq_length, pre.crop_size[0], pre.num_objects, 2, dev)
+    single = apply_object_surgery(trained_weights(), True, pcfg.model.sensory_dim,
+                                  pcfg.model.value_dim)
+    model = build_model(pcfg, device="cuda", state_dict=single, single_object=True)
+    res["pre"], trainer = run_stage("pre_training", pcfg, pre, model, pdata, 3)
+    del trainer
+    torch.cuda.empty_cache()
+    pre_no_remat = pre.copy()
+    pre_no_remat.remat = False
+    res["pre_no_remat"], trainer = run_stage("pre_training", pcfg, pre_no_remat, model,
+                                             pdata, 2)
+    handed = apply_object_surgery(trainer.get_state_dict(), False,
+                                  pcfg.model.sensory_dim, pcfg.model.value_dim)
+    del trainer, model, pdata
+    torch.cuda.empty_cache()
+
+    cfg, stage = main_training_cfg()
+    data = train_batch(stage.seq_length, stage.crop_size[0], stage.num_objects, 2, dev)
+    model = build_model(cfg, device="cuda", state_dict=handed)
+    dtypes = amp_stage_dtypes(model, data["frames"][0, 0].cpu().numpy(), grad=True)
+    res["main"], trainer = run_stage("main_training after the hand-off", cfg, stage,
+                                     model, data, 6, profile=True)
+    res["main"]["stage_dtypes_with_grad_ok"] = dtypes == AMP_STAGE_DTYPES
+    res["main"]["ok"] &= dtypes == AMP_STAGE_DTYPES
+    del trainer
+    torch.cuda.empty_cache()
+    no_remat = stage.copy()
+    no_remat.remat = False
+    res["main_no_remat"], trainer = run_stage("main_training", cfg, no_remat, model,
+                                              data, 2)
+    del trainer, model
+    torch.cuda.empty_cache()
+    model = build_model(cfg, device="cuda", state_dict=trained_weights())
+    res["main_from_trained"], trainer = run_stage(
+        "main_training from the trained weights", cfg, stage, model, data, 6,
+        require_descent=False)
+    del trainer, model, data
+    torch.cuda.empty_cache()
+
+    res["card_vs_cpu"] = card_against_cpu()
+    res["read_memory_forms"] = read_memory_forms()
+    launches = {"radix_topk_readout": read_kernel.radix_topk_readout.launches,
+                "fused_topk_readout": read_kernel.fused_topk_readout.launches}
+    ok = all(res[k]["ok"] for k in ("pre", "pre_no_remat", "main", "main_no_remat",
+                                    "main_from_trained", "card_vs_cpu"))
+    emit({"phase": "train", **res, "launches": launches, "ok": ok,
+          "seconds": time.perf_counter() - t0})
+    if not ok:
+        raise RuntimeError("train phase failed")
+    return launches
+
+
 def phase_kernel(lt_case, k=30):
     t0 = time.perf_counter()
     rng = np.random.default_rng(0)
@@ -1195,6 +1482,7 @@ def main():
     by_path["eval"] = phase_eval(sres)
     by_path["eval_lt"] = phase_eval_lt(lres)
     phase_scripting()
+    by_path["train"] = phase_train()
     kres = phase_kernel(lres["case"])
     fres = phase_fused(sres["case"], kres["cases"]["lvos600"])
     t0 = time.perf_counter()

@@ -7,7 +7,7 @@ is no object chunking.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -59,11 +59,13 @@ class KeyProjection(nn.Module):
 
 
 class MaskEncoder(ResNetTrunk):
-    """Value encoder: ResNet-18 over [image, mask, others], fused with
-    pix_feat, plus the sensory deep update (big_modules.py:90-189)."""
+    """Value encoder: ResNet-18 over [image, mask, others] ([image, mask]
+    for a single-object model), fused with pix_feat, plus the sensory deep
+    update (big_modules.py:90-189)."""
 
-    def __init__(self, model_cfg: Config):
-        super().__init__(model_cfg.mask_encoder.type, extra_dim=2)
+    def __init__(self, model_cfg: Config, single_object: bool = False):
+        super().__init__(model_cfg.mask_encoder.type,
+                         extra_dim=1 if single_object else 2)
         self.fuser = GroupFeatureFusionBlock(model_cfg.pixel_dim,
                                              model_cfg.mask_encoder.final_dim,
                                              model_cfg.value_dim)
@@ -72,13 +74,15 @@ class MaskEncoder(ResNetTrunk):
 
     def forward(self, image: torch.Tensor, pix_feat: torch.Tensor,
                 sensory: torch.Tensor, masks: torch.Tensor,
-                others: torch.Tensor, *, deep_update: bool = True
+                others: Optional[torch.Tensor], *, deep_update: bool = True
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """image [B, 3, H0, W0] (normalized), pix_feat [B, C, h, w],
-        sensory [B, N, Cs, h, w], masks / others [B, N, H0, W0].
+        sensory [B, N, Cs, h, w], masks / others [B, N, H0, W0] (others
+        None for a single-object model).
         Returns (value [B, N, Cv, h, w], new sensory)."""
         b, n = masks.shape[:2]
-        planes = torch.stack([masks, others], dim=2)
+        planes = (masks[:, :, None] if others is None
+                  else torch.stack([masks, others], dim=2))
         g = torch.cat([image[:, None].expand(b, n, *image.shape[1:]),
                        planes.to(image.dtype)], dim=2)
         _, _, f16 = ResNetTrunk.forward(self, g.flatten(0, 1))
@@ -92,18 +96,21 @@ class PixelFeatureFuser(nn.Module):
     """Fuses the pixel memory readout with sensory memory and the last mask
     (big_modules.py:192-235)."""
 
-    def __init__(self, model_cfg: Config):
+    def __init__(self, model_cfg: Config, single_object: bool = False):
         super().__init__()
-        self.sensory_compress = GConv2d(model_cfg.sensory_dim + 2,
-                                        model_cfg.value_dim, 1)
+        self.sensory_compress = GConv2d(
+            model_cfg.sensory_dim + (1 if single_object else 2),
+            model_cfg.value_dim, 1)
         self.fuser = GroupFeatureFusionBlock(model_cfg.pixel_dim,
                                              model_cfg.value_dim,
                                              model_cfg.embed_dim)
 
     def forward(self, pix_feat, pixel_memory, sensory_memory, last_mask,
                 last_others) -> torch.Tensor:
-        """last_mask / last_others [B, N, h, w] at stride 16."""
-        mask_feat = torch.stack([last_mask, last_others], dim=2)
+        """last_mask / last_others [B, N, h, w] at stride 16 (last_others
+        None for a single-object model)."""
+        mask_feat = (last_mask[:, :, None] if last_others is None
+                     else torch.stack([last_mask, last_others], dim=2))
         sensory_readout = self.sensory_compress(
             torch.cat([sensory_memory, mask_feat], dim=2))
         return self.fuser(pix_feat,

@@ -2,8 +2,12 @@
 
 The port's counterpart of cutie_tpu/models/cutie.py (reference
 cutie/model/cutie.py:18-260): encode_image, transform_key, encode_mask,
-read_memory (the training full-softmax read), pixel_fusion, readout_query
-and segment. The stateful memory logic lives in cutie_tpu_torch.inference.
+read_memory (the training full-softmax read), pixel_fusion, readout_query,
+segment and compute_aux (the training aux heads). The stateful memory
+logic lives in cutie_tpu_torch.inference (inference) and
+cutie_tpu_torch.training (training). single_object=True builds the
+pre-training model, whose mask encoder and sensory compression take no
+"others" plane.
 
 Layouts follow the reference: images [B, 3, H, W]; group tensors
 [B, N, C, H, W]; masks [B, N, H, W].
@@ -18,21 +22,23 @@ run in fp32 (models/layers.py:fp32_island).
 from __future__ import annotations
 
 import functools
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn as nn
 
 from cutie_tpu_torch.config import Config
+from cutie_tpu_torch.models.aux_modules import AuxComputer
 from cutie_tpu_torch.models.big_modules import (KeyProjection, MaskDecoder,
                                                 MaskEncoder, PixelEncoder,
                                                 PixelFeatureFuser)
 from cutie_tpu_torch.models.layers import fp32_island
 from cutie_tpu_torch.models.object_summarizer import ObjectSummarizer
 from cutie_tpu_torch.models.object_transformer import QueryTransformer
-from cutie_tpu_torch.ops.memory import get_similarity, readout, softmax_affinity
+from cutie_tpu_torch.ops.memory import (get_similarity_expanded, readout,
+                                        softmax_affinity)
 from cutie_tpu_torch.ops.resize import area_downsample, upsample_4x
-from cutie_tpu_torch.ops.tensor_utils import aggregate
+from cutie_tpu_torch.ops.tensor_utils import aggregate, clip
 
 
 def _stage(method):
@@ -47,10 +53,11 @@ def _stage(method):
 
 class CUTIE(nn.Module):
 
-    def __init__(self, cfg: Config):
+    def __init__(self, cfg: Config, single_object: bool = False):
         super().__init__()
         model_cfg = cfg.model
         self.model_cfg = model_cfg
+        self.single_object = single_object
         amp = (bool(cfg.get("amp", False))
                or str(cfg.get("compute_dtype", "float32")) == "bfloat16")
         self.compute_dtype = torch.bfloat16 if amp else torch.float32
@@ -60,12 +67,13 @@ class CUTIE(nn.Module):
         self.pix_feat_proj = nn.Conv2d(model_cfg.pixel_encoder.ms_dims[0],
                                        model_cfg.pixel_dim, 1)
         self.key_proj = KeyProjection(model_cfg)
-        self.mask_encoder = MaskEncoder(model_cfg)
+        self.mask_encoder = MaskEncoder(model_cfg, single_object)
         self.mask_decoder = MaskDecoder(model_cfg)
-        self.pixel_fuser = PixelFeatureFuser(model_cfg)
+        self.pixel_fuser = PixelFeatureFuser(model_cfg, single_object)
         if self.object_transformer_enabled:
             self.object_transformer = QueryTransformer(model_cfg)
             self.object_summarizer = ObjectSummarizer(model_cfg)
+        self.aux_computer = AuxComputer(cfg)
         self.register_buffer(
             "pixel_mean", torch.tensor(model_cfg.pixel_mean).view(-1, 1, 1),
             persistent=False)
@@ -76,10 +84,12 @@ class CUTIE(nn.Module):
     def _normalize(self, image: torch.Tensor) -> torch.Tensor:
         return (image - self.pixel_mean) / self.pixel_std
 
-    @staticmethod
-    def _get_others(masks: torch.Tensor) -> torch.Tensor:
-        """Per-object sum of all other objects' masks (cutie.py:49-59)."""
-        return (masks.sum(dim=1, keepdim=True) - masks).clamp(0, 1)
+    def _get_others(self, masks: torch.Tensor) -> Optional[torch.Tensor]:
+        """Per-object sum of all other objects' masks (cutie.py:49-59);
+        None for a single-object model."""
+        if self.single_object:
+            return None
+        return clip(masks.sum(dim=1, keepdim=True) - masks, 0.0, 1.0)
 
     @_stage
     def encode_image(self, image: torch.Tensor):
@@ -132,8 +142,11 @@ class CUTIE(nn.Module):
     def segment(self, ms_image_feat: List[torch.Tensor],
                 memory_readout: torch.Tensor, sensory: torch.Tensor, *,
                 selector: Optional[torch.Tensor] = None,
-                update_sensory: bool = True):
-        """-> (new_sensory, logits [B, N+1, H0, W0], prob [B, N+1, H0, W0])."""
+                update_sensory: bool = True, return_low_logits: bool = False):
+        """-> (new_sensory, logits [B, N+1, H0, W0], prob [B, N+1, H0, W0]),
+        and with return_low_logits also the stride-4 aggregate logits
+        before the upsample [B, N+1, H0/4, W0/4], which the training loss
+        samples (training/losses.py)."""
         sensory, logits = self.mask_decoder(ms_image_feat, memory_readout,
                                             sensory,
                                             update_sensory=update_sensory)
@@ -141,8 +154,19 @@ class CUTIE(nn.Module):
             prob = torch.sigmoid(logits.float())
             if selector is not None:
                 prob = prob * selector[..., None, None]
-            logits = upsample_4x(aggregate(prob, dim=1))
-            return sensory, logits, torch.softmax(logits, dim=1)
+            low = aggregate(prob, dim=1)
+            logits = upsample_4x(low)
+            prob = torch.softmax(logits, dim=1)
+        if return_low_logits:
+            return sensory, logits, prob, low
+        return sensory, logits, prob
+
+    @_stage
+    def compute_aux(self, pix_feat: torch.Tensor,
+                    aux_inputs: Dict[str, torch.Tensor],
+                    selector: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The aux heads on read_memory's aux output (models/aux_modules.py)."""
+        return self.aux_computer(pix_feat, aux_inputs, selector)
 
     def read_memory(self, query_key, query_selection, memory_key,
                     memory_shrinkage, msk_value, obj_memory, pix_feat,
@@ -151,18 +175,32 @@ class CUTIE(nn.Module):
 
         query_key / query_selection [B, Ck, h, w]; memory_key [B, Ck, T, h, w];
         memory_shrinkage [B, 1, T, h, w]; msk_value [B, N, Cv, T, h, w];
-        obj_memory [B, N, T, Q, E+1]; last_mask [B, N, H0, W0]."""
+        obj_memory [B, N, T, Q, E+1]; last_mask [B, N, H0, W0].
+        Returns (mem_readout [B, N, E, h, w], aux_output {'sensory',
+        'q_logits' [B, N, L, h, w], 'attn_mask'}) as cutie_tpu's does.
+
+        The similarity is the expanded form (ops/memory.py:
+        get_similarity_expanded), two fp32 matmuls as in cutie_tpu: under
+        autograd the direct form saves two [B, P, N] temporaries a key
+        channel. The affinity and readout are fp32 outside autocast."""
         b, ck = memory_key.shape[:2]
         n, cv = msk_value.shape[1:3]
         h, w = query_key.shape[-2:]
-        mk = memory_key.flatten(2).transpose(1, 2)
-        ms = memory_shrinkage.flatten(1)
-        qk = query_key.flatten(2).transpose(1, 2)
-        qe = query_selection.flatten(2).transpose(1, 2)
-        affinity = softmax_affinity(get_similarity(mk, ms, qk, qe))
-        mv = msk_value.flatten(3).transpose(2, 3)              # [B, N, THW, Cv]
-        pixel_readout = readout(affinity, mv).transpose(2, 3)  # [B, N, Cv, HW]
+        with fp32_island(query_key):
+            mk = memory_key.flatten(2).transpose(1, 2)
+            ms = memory_shrinkage.flatten(1)
+            qk = query_key.flatten(2).transpose(1, 2)
+            qe = query_selection.flatten(2).transpose(1, 2)
+            affinity = softmax_affinity(get_similarity_expanded(mk, ms, qk, qe))
+            mv = msk_value.flatten(3).transpose(2, 3)              # [B, N, THW, Cv]
+            pixel_readout = readout(affinity, mv).transpose(2, 3)  # [B, N, Cv, HW]
         pixel_readout = pixel_readout.reshape(b, n, cv, h, w)
         pixel_readout = self.pixel_fusion(pix_feat, pixel_readout, sensory,
                                           last_mask)
-        return self.readout_query(pixel_readout, obj_memory, selector=selector)
+        mem_readout, aux = self.readout_query(pixel_readout, obj_memory,
+                                              selector=selector)
+        return mem_readout, {
+            "sensory": sensory,
+            "q_logits": aux["logits"] if aux else None,
+            "attn_mask": aux["attn_mask"] if aux else None,
+        }

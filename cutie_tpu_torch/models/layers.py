@@ -36,13 +36,15 @@ def unflatten_group(g: torch.Tensor, bn) -> torch.Tensor:
 
 class FrozenBatchNorm(nn.Module):
     """BatchNorm with frozen statistics: an affine map with stored
-    mean/var (the reference freezes both encoders' BN, big_modules.py)."""
+    mean/var (the reference freezes both encoders' BN statistics,
+    big_modules.py). The affine weight and bias are trainable parameters,
+    as in cutie_tpu (models/layers.py:FrozenBatchNorm)."""
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
-        self.register_buffer("weight", torch.ones(features))
-        self.register_buffer("bias", torch.zeros(features))
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 

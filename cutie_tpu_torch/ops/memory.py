@@ -50,6 +50,39 @@ def get_similarity(mk: torch.Tensor, ms: Optional[torch.Tensor],
     return similarity
 
 
+def get_similarity_expanded(mk: torch.Tensor, ms: Optional[torch.Tensor],
+                            qk: torch.Tensor, qe: Optional[torch.Tensor]
+                            ) -> torch.Tensor:
+    """The same similarity in the expanded form, as cutie_tpu computes it
+    (ops/memory.py:get_similarity): -qe.(mk^2) + 2 (qe qk).mk - qe.qk^2, two
+    fp32 matmuls (TF32 off, cutie_tpu_torch.utils.get_default_model.
+    set_fp32_precision). Shapes as get_similarity's, without a validity
+    mask; [B, P, N] fp32.
+
+    Only the training read (models/cutie.py:read_memory) uses it. Under
+    autograd it saves O(1) [B, P, N] tensors where the direct form's
+    channel loop saves two a channel; its full softmax has no top-k
+    threshold for the expanded form's cancellation (about three digits on
+    trained keys) to move. Inference and consolidation keep the direct
+    form."""
+    mk = mk.float()
+    qk = qk.float()
+    ck = mk.shape[-1]
+    if qe is not None:
+        qe = qe.float()
+        a_sq = torch.einsum("bpc,bnc->bpn", qe, mk * mk)
+        two_ab = 2.0 * torch.einsum("bpc,bnc->bpn", qk * qe, mk)
+        b_sq = (qe * qk * qk).sum(-1, keepdim=True)
+        similarity = -a_sq + two_ab - b_sq
+    else:
+        a_sq = (mk * mk).sum(-1)[:, None, :]
+        two_ab = 2.0 * torch.einsum("bpc,bnc->bpn", qk, mk)
+        similarity = -a_sq + two_ab
+    if ms is not None:
+        return similarity * ms.float()[:, None, :] / math.sqrt(ck)
+    return similarity / math.sqrt(ck)
+
+
 def _float_order_key(x: torch.Tensor) -> torch.Tensor:
     """fp32 -> order key whose unsigned integer order is the float order
     (the standard radix-sort transform the read kernel selects on; no NaNs

@@ -38,12 +38,21 @@ def unpad(x: torch.Tensor, pad: Sequence[int]) -> torch.Tensor:
     return x[..., lh:h - uh, lw:w - uw]
 
 
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """x clipped to [lo, hi], with jnp.clip's gradient: half of it at a
+    value equal to a bound (torch.maximum and torch.minimum split a tie),
+    where torch.clamp passes all of it. A sigmoid saturates onto the
+    bound 1 - 1e-7 over a range of fp32 logits, so the training gradient
+    sees the bounds often."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+
+
 def aggregate(prob: torch.Tensor, dim: int) -> torch.Tensor:
     """Soft aggregation: per-object probabilities -> (num_objects+1)-way
     logits with an implicit background channel prod(1-p), in fp32."""
     prob = prob.float()
     bg = torch.prod(1.0 - prob, dim=dim, keepdim=True)
-    new_prob = torch.cat([bg, prob], dim=dim).clamp(1e-7, 1 - 1e-7)
+    new_prob = clip(torch.cat([bg, prob], dim=dim), 1e-7, 1 - 1e-7)
     return torch.log(new_prob / (1.0 - new_prob))
 
 

@@ -30,10 +30,11 @@ _WEIGHT_URLS = {
 }
 
 # Reference checkpoint entries the port has no tensor for: BatchNorm step
-# counters, positional-encoding frequency buffers (recomputed), and the
-# training-only aux heads (ported with training).
+# counters and positional-encoding frequency buffers (recomputed).
 _SKIPPED_SUFFIXES = ("num_batches_tracked", "inv_freq")
-_SKIPPED_PREFIXES = ("aux_computer.",)
+# The training-only aux heads: a file without them still loads, and the
+# heads keep their initialisation (inference never runs them).
+_AUX_PREFIX = "aux_computer."
 
 
 def set_fp32_precision() -> None:
@@ -54,17 +55,23 @@ def adapt_state_dict(sd: Mapping[str, np.ndarray], model: torch.nn.Module
     """Reference names -> this model's names. Older reference checkpoints
     name a GConv2d's weight `x.weight` where newer ones (and the port) use
     `x.conv.weight`; entries without a counterpart are dropped (see
-    _SKIPPED_*). Values become fp32 tensors."""
+    _SKIPPED_SUFFIXES). Aux-head entries the file lacks keep the model's
+    own. Values become fp32 tensors."""
     own = model.state_dict()
     out = {}
     for k, v in sd.items():
-        if k.endswith(_SKIPPED_SUFFIXES) or k.startswith(_SKIPPED_PREFIXES):
+        if k.endswith(_SKIPPED_SUFFIXES):
             continue
         if k not in own:
             head, _, leaf = k.rpartition(".")
             if f"{head}.conv.{leaf}" in own:
                 k = f"{head}.conv.{leaf}"
         out[k] = torch.from_numpy(np.asarray(v, np.float32))
+    missing_aux = [k for k in own if k.startswith(_AUX_PREFIX) and k not in out]
+    if missing_aux:
+        log.info("No aux-head weights (%s); they keep their initialisation.",
+                 ", ".join(missing_aux))
+        out.update({k: own[k] for k in missing_aux})
     return out
 
 
@@ -119,8 +126,6 @@ def from_jax_variables(variables_np: Mapping[str, Any]) -> Dict[str, np.ndarray]
     for collection in ("params", "batch_stats"):
         for path, value in _flat(variables_np.get(collection, {})):
             mod, leaf = _torch_path(path[:-1]), path[-1]
-            if mod and mod[0] == "aux_computer":
-                continue
             name = ".".join(mod)
             if collection == "batch_stats":
                 out[f"{name}.running_{leaf}"] = value
@@ -160,40 +165,49 @@ def _orthogonal(shape, rng: np.random.Generator) -> np.ndarray:
     return q[:rows, :cols].reshape(shape).astype(np.float32)
 
 
+# The sensory compression's weight: the reference's GConv2d name, and the
+# port's (the name save_weights writes).
+_SENSORY_COMPRESS = ("pixel_fuser.sensory_compress.weight",
+                     "pixel_fuser.sensory_compress.conv.weight")
+
+
 def apply_object_surgery(sd: Mapping[str, np.ndarray], single_object: bool,
                          sensory_dim: int, value_dim: int,
                          init_as_zero_if_needed: bool = False,
                          seed: int = 0) -> Dict[str, np.ndarray]:
     """Single <-> multi-object channel surgery (reference cutie.py:212-256;
     cutie_tpu/utils/weight_import.py:43-75, with the same numpy-seeded
-    orthogonal pads): a single-object checkpoint's mask encoder and
-    sensory compression gain an input channel, a multi-object one's lose
-    it."""
+    orthogonal pads, in adapt_variables_single_to_multi's order): a
+    single-object checkpoint's mask encoder and sensory compression gain an
+    input channel, a multi-object one's lose it. Takes the reference's and
+    the port's names of the sensory compression."""
     sd = dict(sd)
     rng = np.random.default_rng(seed)
+    conv1 = "mask_encoder.conv1.weight"
+    compress = [k for k in _SENSORY_COMPRESS if k in sd]
     if not single_object:
-        k = "mask_encoder.conv1.weight"
-        if k in sd and sd[k].shape[1] == 4:
-            log.info("Converting %s from single to multiple objects.", k)
+        if conv1 in sd and sd[conv1].shape[1] == 4:
+            log.info("Converting %s from single to multiple objects.", conv1)
             pads = (np.zeros((64, 1, 7, 7), np.float32) if init_as_zero_if_needed
                     else _orthogonal((64, 1, 7, 7), rng))
-            sd[k] = np.concatenate([sd[k], pads], axis=1)
-        k = "pixel_fuser.sensory_compress.weight"
-        if k in sd and sd[k].shape[1] == sensory_dim + 1:
-            log.info("Converting %s from single to multiple objects.", k)
-            pads = (np.zeros((value_dim, 1, 1, 1), np.float32)
-                    if init_as_zero_if_needed
-                    else _orthogonal((value_dim, 1, 1, 1), rng))
-            sd[k] = np.concatenate([sd[k], pads], axis=1)
+            sd[conv1] = np.concatenate([sd[conv1], pads], axis=1)
+        for k in compress:
+            if sd[k].shape[1] == sensory_dim + 1:
+                log.info("Converting %s from single to multiple objects.", k)
+                pads = (np.zeros((value_dim, 1, 1, 1), np.float32)
+                        if init_as_zero_if_needed
+                        else _orthogonal((value_dim, 1, 1, 1), rng))
+                sd[k] = np.concatenate([sd[k], pads], axis=1)
     else:
-        k = "mask_encoder.conv1.weight"
-        if k in sd and sd[k].shape[1] == 5:
-            log.warning("Converting %s from multiple objects to single object.", k)
-            sd[k] = sd[k][:, :-1]
-        k = "pixel_fuser.sensory_compress.weight"
-        if k in sd and sd[k].shape[1] == sensory_dim + 2:
-            log.warning("Converting %s from multiple objects to single object.", k)
-            sd[k] = sd[k][:, :-1]
+        if conv1 in sd and sd[conv1].shape[1] == 5:
+            log.warning("Converting %s from multiple objects to single object.",
+                        conv1)
+            sd[conv1] = sd[conv1][:, :-1]
+        for k in compress:
+            if sd[k].shape[1] == sensory_dim + 2:
+                log.warning("Converting %s from multiple objects to single "
+                            "object.", k)
+                sd[k] = sd[k][:, :-1]
     return sd
 
 
@@ -210,13 +224,15 @@ def _unflatten(flat: Mapping[str, np.ndarray]) -> Dict[str, Any]:
     return tree
 
 
-def load_weights(path: str, cfg: Config) -> Dict[str, np.ndarray]:
+def load_weights(path: str, cfg: Config, single_object: bool = False
+                 ) -> Dict[str, np.ndarray]:
     """A reference state dict (torch names, numpy values) from any weights
     file cutie_tpu's build_model takes (cutie_tpu/utils/get_default_model.py:
     54-96): cutie_tpu's trainer npz (flax paths 'params/...' and
     'batch_stats/...'), a torch-named npz, or a reference .pth (torch.load on
     the CPU, weights only, a training checkpoint's 'network' unwrapped). A
-    torch-named state dict gets the multi-object surgery."""
+    torch-named state dict gets the object surgery for a multi-object
+    model, or for a single-object one when single_object."""
     if path.endswith(".npz"):
         sd = load_torch_npz(path)
         if any(k.startswith(("params/", "batch_stats/")) for k in sd):
@@ -227,14 +243,14 @@ def load_weights(path: str, cfg: Config) -> Dict[str, np.ndarray]:
             sd = sd["network"]
         sd = {k: (v.float() if v.is_floating_point() else v).numpy()
               for k, v in sd.items()}
-    return apply_object_surgery(sd, False, cfg.model.sensory_dim,
+    return apply_object_surgery(sd, single_object, cfg.model.sensory_dim,
                                 cfg.model.value_dim)
 
 
 def build_model(cfg: Config, weights: Optional[str] = None,
                 device: str = "cuda", *,
-                state_dict: Optional[Mapping[str, np.ndarray]] = None
-                ) -> CUTIE:
+                state_dict: Optional[Mapping[str, np.ndarray]] = None,
+                single_object: bool = False) -> CUTIE:
     """CUTIE in eval mode on `device` (default the card; a CPU model only
     when asked for), with weights from a file (load_weights) or an explicit
     numpy state dict in torch names; a weights path that does not exist
@@ -243,15 +259,17 @@ def build_model(cfg: Config, weights: Optional[str] = None,
     none. Turns TF32 off: the port keeps cutie_tpu's fp32 precision map.
     cfg.amp=True or cfg.compute_dtype='bfloat16' builds the model with bf16
     conv and transformer stacks and fp32 islands, as cutie_tpu's
-    build_model does (models/cutie.py); its parameters stay fp32."""
+    build_model does (models/cutie.py); its parameters stay fp32.
+    single_object builds the pre-training model (models/cutie.py); an
+    explicit state_dict must already fit it (apply_object_surgery)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_model: a CUDA device was asked for and "
                            "torch.cuda.is_available() is False")
     set_fp32_precision()
-    model = CUTIE(cfg)
+    model = CUTIE(cfg, single_object)
     if weights and os.path.exists(weights):
-        state_dict = load_weights(weights, cfg)
+        state_dict = load_weights(weights, cfg, single_object)
     elif weights:
         log.warning("Weights %s not found; using random init.", weights)
     if state_dict is not None:

@@ -62,7 +62,15 @@ def test_every_module_imports_without_optional_packages():
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.strip() == str(len(modules))
     assert {"cutie_tpu_torch.eval_vos", "cutie_tpu_torch.scripting_demo",
-            "cutie_tpu_torch.utils.results", "chip_smoke"} <= set(modules)
+            "cutie_tpu_torch.utils.results", "chip_smoke",
+            "cutie_tpu_torch.train", "cutie_tpu_torch.models.aux_modules",
+            "cutie_tpu_torch.ops.point_features",
+            "cutie_tpu_torch.training.losses",
+            "cutie_tpu_torch.training.train_forward",
+            "cutie_tpu_torch.training.trainer",
+            "cutie_tpu_torch.utils.log_integrator", "cutie_tpu_torch.utils.logger",
+            "cutie_tpu_torch.utils.time_estimator",
+            "cutie_tpu_torch.utils.image_saver"} <= set(modules)
 
 
 def test_cuda_sources_are_plain_c():
