@@ -3,7 +3,9 @@
     python3 chip_smoke.py
 
 Phases, each printing one JSON line with its wall seconds:
-  env        the card, the CUDA version and nvidia-smi's name and power limit;
+  env        the card, the CUDA version and nvidia-smi's name and power limit,
+             g++'s version (it builds the JPEG decoder), whether scipy is
+             installed, the CPU count;
   build      nvcc builds both read kernels into cutie_tpu_torch/_build/, one
              process per source, started together; ptxas's report, and the
              resident blocks per SM of each kernel and stage;
@@ -71,13 +73,26 @@ Phases, each printing one JSON line with its wall seconds:
              every parameter's gradient, TRAIN_OUT_RTOL, TRAIN_GRAD_RTOL);
              the training read's direct and expanded similarity (bytes kept
              for the backward, ms); neither read kernel is launched;
+  train_entry  the two-stage train entry (train.py:run_stage) on the
+             committed JPEG/PNG fixtures (tests/torch_fixtures/): every
+             JPEG decoded without Pillow against the SHA-256 of Pillow's
+             decode, ms to read a 480x854 frame; the loader alone at main
+             training's batch of 16 (frames a second); pre-training, the
+             hand-off, main training with a curriculum rebuild of the loader,
+             and a resume from its checkpoint at the right it, epoch and
+             max_skip; ms a step with the loader feeding it against phase
+             train's in-memory step, and the loader's wait a step; neither
+             read kernel is launched;
   kernels    one line listing every ported kernel.
 The last line is {"ok": true, "device": {...}}. Any failure raises and the
 script exits non-zero. It needs a CUDA device and the repository around it.
 """
 import dataclasses
 import functools
+import hashlib
+import importlib.util
 import json
+import os
 import re
 import subprocess
 import sys
@@ -89,7 +104,9 @@ import numpy as np
 import torch
 from torch.autograd import DeviceType
 
+from cutie_tpu_torch import train as train_entry
 from cutie_tpu_torch.config import eval_config
+from cutie_tpu_torch.data.setup_training_data import setup_main_training_datasets
 from cutie_tpu_torch.eval_vos import eval_vos
 from cutie_tpu_torch.inference import InferenceCore
 from cutie_tpu_torch.ops import cuda_build, read_kernel
@@ -104,12 +121,14 @@ from cutie_tpu_torch.training.trainer import Trainer
 from cutie_tpu_torch.utils.get_default_model import (apply_object_surgery, build_model,
                                                      load_torch_npz,
                                                      set_fp32_precision)
-from cutie_tpu_torch.utils.image_io import read_png, write_png
+from cutie_tpu_torch.utils.image_io import decode_jpeg, read_image, read_png, write_png
+from cutie_tpu_torch.utils.logger import TensorboardLogger
 from cutie_tpu_torch.utils.palette import davis_palette
 from cutie_tpu_torch.utils.synth_video import synth_frames_480, synth_gt_masks_480
 
 REPO = Path(__file__).resolve().parent
 GOLDEN = REPO / "tests" / "golden"
+FIXTURES = REPO / "tests" / "torch_fixtures"   # tests/test_torch_jpeg.py writes them
 TRAINED_WEIGHTS = GOLDEN / "state_dict_base_trained.npz"
 
 # H100 SXM data sheet: HBM3 bandwidth and fp32 (non-tensor-core) peak.
@@ -553,10 +572,13 @@ def phase_env():
                          "this script runs only on a CUDA device")
     t0 = time.perf_counter()
     smi = nvidia_smi_line()
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True, timeout=60)
     emit({"phase": "env", "device": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "nvidia_smi": smi,
-          "seconds": time.perf_counter() - t0})
+          "gxx": gxx.stdout.splitlines()[0] if gxx.returncode == 0 else gxx.stderr,
+          "scipy": importlib.util.find_spec("scipy") is not None,
+          "cpu_count": os.cpu_count(), "seconds": time.perf_counter() - t0})
     print(smi, flush=True)
     return smi
 
@@ -1328,6 +1350,187 @@ def phase_train():
           "seconds": time.perf_counter() - t0})
     if not ok:
         raise RuntimeError("train phase failed")
+    return launches, res["main"]["step_ms_after_first"]
+
+
+# ------------------------------------------------------------------ train entry
+
+def fixture_train_cfg():
+    """train_config() (cutie-base, the stages at their widths) over the
+    committed fixtures: the static images for pre-training, the three VOS
+    videos (36 frames, 480x854 JPEG) for main training. Each stage at batch
+    2 (pre-training 3 steps, main training 4); main training's curriculum
+    switches max_skip from 5 to 10 at half way, which rebuilds the loader;
+    a checkpoint every 3 steps, image grids every 2."""
+    cfg = train_config()
+    cfg.merge({
+        "log_text_interval": 2, "log_image_interval": 2,
+        "save_weights_interval": 1000, "save_checkpoint_interval": 3,
+        "data": {
+            "image_datasets": {"base": str(FIXTURES),
+                               "FIXTURE": {"directory": "static", "data_structure": 1,
+                                           "multiplier": 1}},
+            "vos_datasets": {"base": str(FIXTURES / "vos"),
+                             "FIXTURE": {"image_directory": "JPEGImages",
+                                         "mask_directory": "Annotations",
+                                         "multiplier": 1, "frame_interval": 1,
+                                         "subset": None, "empty_masks": None}},
+            "pre_training": {"datasets": ["FIXTURE"]},
+            "main_training": {"datasets": ["FIXTURE"]},
+        }})
+    cfg.pre_training.merge({"batch_size": 2, "num_iterations": 3})
+    cfg.main_training.merge({"batch_size": 2, "num_iterations": 4,
+                             "max_skip_schedule": [5, 10],
+                             "max_skip_schedule_fraction": [0.0, 0.5]})
+    return cfg
+
+
+def check_decoder():
+    """Every committed JPEG through the port's decoder: the supported ones
+    hash to the SHA-256 of Pillow's decode in tests/torch_fixtures/
+    manifest.json, the others raise. Then ms to read one 480x854 frame
+    (read_image: the file read and the decode), the mean of 20."""
+    manifest = json.loads((FIXTURES / "manifest.json").read_text())
+    mismatched, refused = [], []
+    for rel, entry in sorted(manifest.items()):
+        data = (FIXTURES / rel).read_bytes()
+        if not entry["supported"]:
+            try:
+                decode_jpeg(data, rel)
+                mismatched.append(f"{rel}: decoded, should raise")
+            except ValueError as e:
+                refused.append(str(e))
+            continue
+        pixels = decode_jpeg(data, rel)
+        if (list(pixels.shape) != entry["shape"]
+                or hashlib.sha256(pixels.tobytes()).hexdigest() != entry["sha256"]):
+            mismatched.append(rel)
+    frame = str(FIXTURES / "vos" / "JPEGImages" / "synth_a" / "00000.jpg")
+    read_image(frame)
+    t1 = time.perf_counter()
+    for _ in range(20):
+        read_image(frame)
+    return {"files": len(manifest), "mismatched": mismatched, "refused": refused,
+            "read_ms_480x854": 1e3 * (time.perf_counter() - t1) / 20,
+            "ok": not mismatched and len(refused) == sum(
+                not e["supported"] for e in manifest.values())}
+
+
+def loader_alone(cfg, n_batches=2):
+    """ShardedLoader over the VOS fixture at main training's real batch
+    (16 sequences of T=8, a 480x480 crop, 3 objects, merge_probability
+    0.5, cfg.num_workers threads), no training: n_batches batches, from a
+    cold start, and the frames a second they give."""
+    stage = cfg.main_training.copy()
+    stage.batch_size = 16
+    loader = setup_main_training_datasets(cfg, stage, stage.max_skip_schedule[0])[1]
+    t0 = time.perf_counter()
+    stamps, frames = [], 0
+    batches = loader.epoch(0)
+    try:
+        for batch in batches:
+            stamps.append(time.perf_counter() - t0)
+            shape = list(batch["frames"].shape)
+            frames += shape[0] * shape[1]
+            if len(stamps) == n_batches:
+                break
+    finally:
+        batches.close()
+    if len(stamps) < n_batches:
+        raise RuntimeError(f"the loader gave {len(stamps)} batches, not {n_batches}")
+    return {"batch_shape": shape, "num_workers": cfg.num_workers,
+            "cpu_count": os.cpu_count(), "batches": len(stamps),
+            "batch_ready_s": stamps, "frames_per_s": frames / stamps[-1]}
+
+
+def stage_summary(trace):
+    """A run_stage trace: each step's it, epoch, max_skip, ms and loader
+    wait; the means over the steps after the first; the losses."""
+    later = trace[1:] or trace
+    losses = [r["losses"]["total_loss"] for r in trace]
+    return {"its": [r["it"] for r in trace], "epochs": [r["epoch"] for r in trace],
+            "max_skip": [r["max_skip"] for r in trace],
+            "step_ms": [r["step_ms"] for r in trace],
+            "wait_ms": [r["wait_ms"] for r in trace],
+            "step_ms_after_first": float(np.mean([r["step_ms"] for r in later])),
+            "wait_ms_after_first": float(np.mean([r["wait_ms"] for r in later])),
+            "total_loss": losses,
+            "finite": all(np.isfinite(v) for r in trace for v in r["losses"].values())}
+
+
+def phase_train_entry(in_memory_step_ms=None):
+    """The two-stage train entry (cutie_tpu_torch/train.py:run_stage) on the
+    committed JPEG/PNG fixtures, cutie-base from the trained test weights:
+    the decoder against Pillow's hashes; the loader alone at main
+    training's batch of 16; pre-training (single-object model, 384x384,
+    T=3, batch 2, 3 steps), the hand-off, main training (480x480, T=8,
+    batch 2, amp, remat, 4 steps, the loader rebuilt by the curriculum at
+    step 2), and a resume from the checkpoint written at step 3, which
+    must continue at it 3, epoch 3 // batches_per_epoch and max_skip 10, as
+    cutie_tpu's run_stage computes them. ms a step with the loader feeding
+    it, beside in_memory_step_ms (phase train's main-training step in this
+    call), and the loader's wait a step."""
+    t0 = time.perf_counter()
+    read_kernel.radix_topk_readout.launches = 0
+    read_kernel.fused_topk_readout.launches = 0
+    cfg = fixture_train_cfg()
+    res = {"decoder": check_decoder(), "loader_alone": loader_alone(cfg)}
+    logger = TensorboardLogger(None, enabled=False)
+    grids = []
+    logger.log_image = lambda tag, img, it: grids.append((tag, it, list(img.shape)))
+    sensory, value = cfg.model.sensory_dim, cfg.model.value_dim
+    traces = {"pre": [], "main": [], "resume": []}
+    with tempfile.TemporaryDirectory() as run_path:
+        single = apply_object_surgery(trained_weights(), True, sensory, value)
+        sd = train_entry.run_stage(cfg, cfg.pre_training, single, run_path, logger,
+                                   trace=traces["pre"])
+        handed = apply_object_surgery(sd, False, sensory, value)
+        torch.cuda.empty_cache()
+        train_entry.run_stage(cfg, cfg.main_training, handed, run_path, logger,
+                              trace=traces["main"])
+        torch.cuda.empty_cache()
+        ckpt = str(Path(run_path) / "checkpoint.pt")
+        saved_it = int(torch.load(ckpt, map_location="cpu", weights_only=True)["it"])
+        cfg.checkpoint = ckpt
+        train_entry.run_stage(cfg, cfg.main_training, handed, run_path, logger,
+                              trace=traces["resume"])
+        files = sorted(os.listdir(run_path))
+    torch.cuda.empty_cache()
+    main = cfg.main_training
+    per_epoch = setup_main_training_datasets(cfg, main, 5)[1].batches_per_epoch()
+    skip_i = max(i for i, f in enumerate(main.max_skip_schedule_fraction)
+                 if saved_it >= f * main.num_iterations)
+    want_resume = {"its": list(range(saved_it, main.num_iterations)),
+                   "epochs": [saved_it // per_epoch] * (main.num_iterations - saved_it),
+                   "max_skip": [main.max_skip_schedule[skip_i]] * (main.num_iterations - saved_it)}
+    steps = {k: stage_summary(v) for k, v in traces.items()}
+    checks = {
+        "pre_its": steps["pre"]["its"] == [0, 1, 2],
+        "main_curriculum": (steps["main"]["its"], steps["main"]["epochs"],
+                            steps["main"]["max_skip"]) == ([0, 1, 2, 3], [0, 0, 1, 1],
+                                                           [5, 5, 10, 10]),
+        "handoff": handed["mask_encoder.conv1.weight"].shape[1] == 5
+        and sd["mask_encoder.conv1.weight"].shape[1] == 4,
+        "resume": saved_it == 3 and all(steps["resume"][k] == v
+                                        for k, v in want_resume.items()),
+        "files": {"weights_pre_training_final.npz", "weights_main_training_final.npz",
+                  "checkpoint.pt", "checkpoint_final.pt"} <= set(files),
+        "grids": [t for t, _, _ in grids] == ["train/pre_training", "train/main_training",
+                                              "train/main_training", "train/main_training"],
+        "finite": all(v["finite"] for v in steps.values()),
+    }
+    launches = {"radix_topk_readout": read_kernel.radix_topk_readout.launches,
+                "fused_topk_readout": read_kernel.fused_topk_readout.launches}
+    ok = res["decoder"]["ok"] and all(checks.values())
+    emit({"phase": "train_entry", **res, "steps": steps, "resume_expected": want_resume,
+          "batches_per_epoch": per_epoch, "checks": checks, "files": files,
+          "grids": grids, "in_memory_main_step_ms": in_memory_step_ms,
+          "main_step_ms_with_loader": steps["main"]["step_ms_after_first"],
+          "main_loader_wait_ms": steps["main"]["wait_ms_after_first"],
+          "launches": launches, "nvidia_smi": nvidia_smi_line(), "ok": ok,
+          "seconds": time.perf_counter() - t0})
+    if not ok:
+        raise RuntimeError("train_entry phase failed")
     return launches
 
 
@@ -1482,7 +1685,8 @@ def main():
     by_path["eval"] = phase_eval(sres)
     by_path["eval_lt"] = phase_eval_lt(lres)
     phase_scripting()
-    by_path["train"] = phase_train()
+    by_path["train"], in_memory_step_ms = phase_train()
+    by_path["train_entry"] = phase_train_entry(in_memory_step_ms)
     kres = phase_kernel(lres["case"])
     fres = phase_fused(sres["case"], kres["cases"]["lvos600"])
     t0 = time.perf_counter()

@@ -1,21 +1,34 @@
-"""Two-stage training: the configuration.
+"""Two-stage training entry point.
 
-The port's counterpart of the configuration part of cutie_tpu/train.py
-(reference cutie/config/train_config.yaml and cutie/config/data/*.yaml):
-train_config, the data presets and apply_data_preset. The stages are
-pre_training (static images, a single-object model) and main_training
-(video, three objects), with the weights handed from one to the next
-through utils/get_default_model.py:apply_object_surgery.
+The port's counterpart of cutie_tpu/train.py (reference cutie/train.py and
+cutie/config/train_config.yaml, data/*.yaml): pre_training (static images,
+a single-object model), then main_training (video, three objects), the
+weights handed from one to the next through
+utils/get_default_model.py:apply_object_surgery; per-stage seeding, the
+max_skip curriculum that rebuilds the loader, resumption from a
+checkpoint, image grids, weights and checkpoints at their intervals, and a
+crash-save guard.
 
-run_stage and main, which drive the data pipeline, come with the port of
-that pipeline (cutie_tpu/data/*); until then a stage is run by
-training/trainer.py:Trainer.do_pass on batches made in memory.
+    python -m cutie_tpu_torch.train exp_id=first data.vos_datasets.base=... [overrides] [device=cpu]
+
+It trains on the card; device=cpu asks for the CPU. Without a card and
+without device=cpu it raises.
 """
 from __future__ import annotations
 
+import logging
+import os
+import sys
+import time
 from os import path
+from typing import Dict, List, Optional
 
-from cutie_tpu_torch.config import Config, model_base
+import numpy as np
+import torch
+
+from cutie_tpu_torch.config import Config, model_base, model_small
+
+log = logging.getLogger("train")
 
 # package-relative subset and empty-mask index files (the port's copy of
 # cutie_tpu/utils/subsets/)
@@ -150,3 +163,211 @@ def train_config() -> Config:
             "frequent_save_in_last": 0, "frequent_save_interval": 1000,
         },
     })
+
+
+def step_generator(seed: int, it: int) -> torch.Generator:
+    """The CPU generator of step `it` of a stage seeded with `seed`: a pure
+    function of both, so that a resumed run draws what the run it resumes
+    would have drawn (it takes the place of cutie_tpu's jax.random.split)."""
+    return torch.Generator().manual_seed(((seed & 0xFFFFFFFF) << 32) | (it & 0xFFFFFFFF))
+
+
+def run_stage(cfg, stage_cfg, state_dict: Optional[Dict[str, np.ndarray]],
+              run_path: str, logger, device: str = "cuda",
+              trace: Optional[List[dict]] = None) -> Dict[str, np.ndarray]:
+    """Train one stage from `state_dict` (torch names; None: a random
+    initialisation from the stage seed) and return the trained state dict.
+    A checkpoint in cfg.checkpoint is resumed (epoch and curriculum
+    position fast-forwarded) and then cleared, so that it applies to the
+    first stage only. `trace`, when given, receives one record a step:
+    it, epoch, max_skip, the ms spent waiting for the loader and the ms of
+    the step, and the losses."""
+    from cutie_tpu_torch.data.setup_training_data import (process_rank,
+                                                          setup_main_training_datasets,
+                                                          setup_pre_training_datasets)
+    from cutie_tpu_torch.training.trainer import Trainer
+    from cutie_tpu_torch.utils.get_default_model import build_model
+    from cutie_tpu_torch.utils.image_saver import vis_sequence
+    from cutie_tpu_torch.utils.log_integrator import Integrator
+    from cutie_tpu_torch.utils.time_estimator import TimeEstimator
+
+    device = torch.device(device)
+    stage = stage_cfg.name
+    seed = cfg.seed + (0 if stage == "pre_training" else 1)
+    single_object = (stage_cfg.num_objects == 1
+                     and cfg.get("single_object_pretraining", True))
+    # amp: bf16 autocast inside the model's stages with fp32 parameters
+    model_cfg = cfg.copy()
+    model_cfg.amp = bool(stage_cfg.amp)
+    torch.manual_seed(seed)
+    model = build_model(model_cfg, device=device, state_dict=state_dict,
+                        single_object=single_object)
+    trainer = Trainer(model_cfg, stage_cfg, model)
+    if cfg.checkpoint is not None:
+        # resume applies to the first enabled stage only (reference
+        # train.py:84-89 loads then clears): a pre_training checkpoint must
+        # not be loaded into main_training over the handed-off weights
+        trainer.load_checkpoint(cfg.checkpoint)
+        cfg.checkpoint = None
+    rank, _ = process_rank()
+
+    integrator = Integrator(logger)
+    logger.time_estimator = TimeEstimator(stage_cfg.num_iterations,
+                                          cfg.log_text_interval)
+
+    max_skip_values = stage_cfg.get("max_skip_schedule", [0])
+    max_skip_fracs = stage_cfg.get("max_skip_schedule_fraction", [0.0])
+
+    def build_loader(max_skip):
+        if stage == "pre_training":
+            return setup_pre_training_datasets(cfg, stage_cfg, seed=seed)[1]
+        return setup_main_training_datasets(cfg, stage_cfg, max_skip, seed=seed)[1]
+
+    total_iter = stage_cfg.num_iterations
+    skip_i = 0
+    loader = build_loader(max_skip_values[0])
+    it = trainer.it
+    # checkpoint resume: fast-forward the deterministic stream to the epoch
+    # the run stopped in (reference train.py: current_epoch = curr_iter //
+    # len(loader)), and the curriculum pointer to its max_skip
+    epoch = it // max(loader.batches_per_epoch(), 1)
+    while (stage == "main_training" and skip_i < len(max_skip_fracs) - 1
+           and it >= max_skip_fracs[skip_i + 1] * total_iter):
+        skip_i += 1
+    if skip_i > 0:
+        loader = build_loader(max_skip_values[skip_i])
+
+    def next_batch(batches):
+        """The next batch, uploaded (asynchronously on the card), with the
+        host frames and class maps kept for the image grids, and the ms
+        spent waiting for it."""
+        t0 = time.perf_counter()
+        data = next(batches, None)
+        wait = 1e3 * (time.perf_counter() - t0)
+        if data is None:
+            return None
+        data.pop("info", None)
+        return trainer.upload_batch(data), data["cls_gt"], data["frames"], wait
+
+    try:
+        while it < total_iter:
+            batches = iter(loader.epoch(epoch))
+            nxt = next_batch(batches)
+            while nxt is not None:
+                data_dev, cls_gt, host_frames, wait_ms = nxt
+                # max_skip curriculum: rebuild the loader at the schedule's
+                # points (train.py:102-119, 142-149)
+                if (stage == "main_training"
+                        and skip_i < len(max_skip_fracs) - 1
+                        and it >= max_skip_fracs[skip_i + 1] * total_iter):
+                    skip_i += 1
+                    loader = build_loader(max_skip_values[skip_i])
+                    break
+                t0 = time.perf_counter()
+                losses = trainer.do_pass(data_dev, it, step_generator(seed, it))
+                # the next batch uploads while this step runs on the card
+                nxt = next_batch(batches)
+                losses = {k: float(v) for k, v in losses.items()}  # waits for the step
+                integrator.add_dict(losses)
+                if trace is not None:
+                    trace.append({"it": it, "epoch": epoch,
+                                  "max_skip": max_skip_values[skip_i],
+                                  "wait_ms": wait_ms,
+                                  "step_ms": 1e3 * (time.perf_counter() - t0),
+                                  "losses": losses})
+                it += 1
+                if it % cfg.log_text_interval == 0:
+                    integrator.finalize(f"train/{stage}", it)
+                    integrator.reset_except_hooks()
+                if it % cfg.log_image_interval == 0 and rank == 0:
+                    # image/GT/prediction grids (reference trainer.py:113-118)
+                    grid = vis_sequence({"frames": host_frames, "cls_gt": cls_gt},
+                                        trainer.last_logits.float().cpu().numpy())
+                    logger.log_image(f"train/{stage}", grid, it)
+                if it % cfg.save_weights_interval == 0 and rank == 0:
+                    trainer.save_weights(path.join(run_path, f"weights_{it}.npz"))
+                if it % cfg.save_checkpoint_interval == 0 and rank == 0:
+                    trainer.save_checkpoint(path.join(run_path, "checkpoint.pt"))
+                if it >= total_iter:
+                    break
+            batches.close()   # an epoch left early stops its decoding
+            epoch += 1
+    finally:
+        # crash-save guard (train.py:157-160)
+        if rank == 0:
+            trainer.save_weights(path.join(run_path, f"weights_{stage}_final.npz"))
+            trainer.save_checkpoint(path.join(run_path, "checkpoint_final.pt"))
+    return trainer.get_state_dict()
+
+
+def setup_rank_logging(run_path: str) -> None:
+    """Per-rank log files with rank-tagged formatters (reference
+    cutie/config/hydra/job_logging/custom.yaml:4-16)."""
+    from cutie_tpu_torch.data.setup_training_data import process_rank
+
+    rank, _ = process_rank()
+    fmt = logging.Formatter(
+        f"[%(asctime)s][%(levelname)s][r{rank}] - %(message)s",
+        datefmt="%Y-%m-%d %H:%M:%S")
+    root = logging.getLogger()
+    root.setLevel(logging.INFO)
+    stream = logging.StreamHandler()
+    stream.setFormatter(fmt)
+    root.addHandler(stream)
+    os.makedirs(run_path, exist_ok=True)
+    fh = logging.FileHandler(path.join(run_path, f"train_rank{rank}.log"))
+    fh.setFormatter(fmt)
+    root.addHandler(fh)
+
+
+def main(argv=None):
+    from cutie_tpu_torch.data.setup_training_data import process_rank
+    from cutie_tpu_torch.utils.get_default_model import (apply_object_surgery,
+                                                         load_torch_npz)
+    from cutie_tpu_torch.utils.logger import TensorboardLogger
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    device = "cuda"
+    for arg in [a for a in argv if a.startswith("device=")]:
+        device = arg.partition("=")[2]
+        argv.remove(arg)
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("training runs on the card, and torch.cuda.is_available() "
+                           "is False; pass device=cpu to train on the CPU")
+
+    cfg = train_config()
+    cfg.apply_overrides(argv)
+    # data=<preset> (base / with-mose / mega) overlays the main-training
+    # dataset mix and schedule; explicit overrides then apply again on top
+    if cfg.data.preset != "base":
+        apply_data_preset(cfg, cfg.data.preset)
+        cfg.apply_overrides(argv)
+    # model=<small|base> stores a string; resolve it after every override
+    # pass, as hydra resolves groups before overrides
+    if isinstance(cfg.get("model"), str):
+        cfg.model = model_small() if cfg.model == "small" else model_base()
+
+    run_path = path.join("output", cfg.exp_id)
+    setup_rank_logging(run_path)
+    rank, _ = process_rank()
+    logger = TensorboardLogger(path.join(run_path, "tb"), enabled=rank == 0)
+    logger.log_string("config", str(cfg.to_dict()))
+
+    np.random.seed(cfg.seed)
+    state_dict = load_torch_npz(cfg.weights) if cfg.weights is not None else None
+    for stage_name in ("pre_training", "main_training"):
+        stage_cfg = cfg[stage_name]
+        if not stage_cfg.enabled:
+            continue
+        log.info("=== stage %s ===", stage_name)
+        state_dict = run_stage(cfg, stage_cfg, state_dict, run_path, logger, device)
+        if stage_name == "pre_training" and stage_cfg.num_objects == 1:
+            # single- to multi-object surgery for the hand-off
+            # (reference cutie/model/cutie.py:212-256)
+            state_dict = apply_object_surgery(state_dict, False, cfg.model.sensory_dim,
+                                              cfg.model.value_dim)
+    return state_dict
+
+
+if __name__ == "__main__":
+    main()

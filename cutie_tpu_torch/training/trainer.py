@@ -110,6 +110,19 @@ class Trainer:
         self.updates = 0   # optimizer updates applied: the schedule's count
         self.last_logits = None
 
+    def upload_batch(self, data: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+        """A host batch on the model's device, uploaded asynchronously: each
+        array is copied into pinned host memory and sent with
+        non_blocking=True, so that batch i+1 uploads while step i runs
+        (cutie_tpu's upload_batch). On the CPU the arrays are wrapped."""
+        out = {}
+        for k in DATA_KEYS:
+            t = torch.from_numpy(np.ascontiguousarray(data[k]))
+            if self.device.type == "cuda":
+                t = t.pin_memory().to(self.device, non_blocking=True)
+            out[k] = t
+        return out
+
     def do_pass(self, data: Mapping[str, Any], it: int,
                 generator: torch.Generator) -> Dict[str, torch.Tensor]:
         """One optimization step. data: frames [B, T, 3, H, W] in [0, 1],

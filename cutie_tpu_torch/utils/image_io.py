@@ -1,7 +1,8 @@
-"""Image files for the eval harness and the scripts, without PIL.
+"""Image files for the eval harness, the training data and the scripts,
+without PIL.
 
 The port's counterpart of every PIL.Image call in cutie_tpu's readers,
-result saver, demos and scripts:
+datasets, result saver, demos and scripts:
 - a PNG codec in zlib and numpy. It reads 8-bit grayscale, RGB, palette,
   grayscale-alpha and RGBA images, non-interlaced, with all five row
   filters; palette and grayscale images also packed at 1, 2 or 4 bits,
@@ -9,15 +10,27 @@ result saver, demos and scripts:
   grayscale and RGB images (write_png). Interlaced and 16-bit files raise;
 - Pillow's BILINEAR and NEAREST resizes, bit for bit (resize_bilinear,
   resize_nearest), and the readers' shorter-edge resize (resize_shorter);
-- JPEG through Pillow, imported only when a JPEG is read or written
+- a baseline JPEG decoder (read_jpeg), bit-equal to Pillow's decode: host
+  C++ in csrc_host/jpeg_decode.cpp, built with g++ at first use into
+  _build/ and called through ctypes, which releases the GIL, so that
+  loader threads decode in parallel;
+- the mask conversions the training datasets ask of Pillow
+  (convert_mask: convert('L') and convert('P'));
+- JPEG writing through Pillow, imported only when a JPEG is written
   (require_pillow raises an ImportError that names Pillow when it is
   missing).
 """
 from __future__ import annotations
 
+import ctypes
+import hashlib
 import math
+import os
 import struct
+import subprocess
+import threading
 import zlib
+from pathlib import Path
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -30,14 +43,15 @@ _LOW_BIT_TYPES = (0, 3)   # the colour types that may pack 1, 2 or 4 bits
 
 
 def require_pillow():
-    """PIL.Image, for JPEG files; an ImportError naming Pillow if it is not
-    installed."""
+    """PIL.Image, for writing JPEG files; an ImportError naming Pillow if
+    it is not installed."""
     try:
         from PIL import Image
     except ImportError as e:
         raise ImportError(
-            "JPEG images need Pillow (the PIL package), which is not "
-            "installed; PNG images are read and written without it") from e
+            "writing JPEG images needs Pillow (the PIL package), which is not "
+            "installed; PNG images are read and written, and JPEG images "
+            "read, without it") from e
     return Image
 
 
@@ -185,13 +199,126 @@ def to_rgb(pixels: np.ndarray, mode: str,
     return np.repeat(pixels[..., None], 3, axis=-1)
 
 
+# ----------------------------------------------------------------- JPEG read
+
+JPEG_SOURCE = Path(__file__).resolve().parent.parent / "csrc_host" / "jpeg_decode.cpp"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+_JPEG_LOCK = threading.Lock()
+_JPEG_LIB: List[ctypes.CDLL] = []
+_ERR_LEN = 256
+
+
+def jpeg_library() -> ctypes.CDLL:
+    """The decoder's shared library, built with g++ at first use into
+    _build/, named by a hash of the source and the flags; raises if g++
+    fails or the library does not load."""
+    with _JPEG_LOCK:
+        if _JPEG_LIB:
+            return _JPEG_LIB[0]
+        digest = hashlib.sha256(" ".join(GXX_FLAGS).encode()
+                                + JPEG_SOURCE.read_bytes()).hexdigest()[:16]
+        so = BUILD_DIR / f"jpeg_decode-{digest}.so"
+        if not so.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_suffix(f".{os.getpid()}.tmp")
+            cmd = ["g++", *GXX_FLAGS, "-o", str(tmp), str(JPEG_SOURCE)]
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            if res.returncode != 0:
+                raise RuntimeError(f"g++ failed ({res.returncode}): "
+                                   f"{' '.join(cmd)}\n{res.stderr}")
+            os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
+        lib = ctypes.CDLL(str(so))
+        size_t, u8p, intp = ctypes.c_size_t, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)
+        lib.jpeg_header.argtypes = [u8p, size_t, intp, intp, intp,
+                                    ctypes.c_char_p, ctypes.c_int]
+        lib.jpeg_header.restype = ctypes.c_int
+        lib.jpeg_decode.argtypes = [u8p, size_t, u8p, size_t,
+                                    ctypes.c_char_p, ctypes.c_int]
+        lib.jpeg_decode.restype = ctypes.c_int
+        _JPEG_LIB.append(lib)
+        return lib
+
+
+def decode_jpeg(data: bytes, name: str = "JPEG data") -> np.ndarray:
+    """A baseline JPEG held in memory as [H, W] uint8 (one component, mode
+    'L') or [H, W, 3] uint8 RGB, as np.array(Image.open(...)) gives it;
+    raises ValueError naming what it does not support (progressive,
+    arithmetic coding, 12-bit, CMYK, Adobe transforms, other sampling)."""
+    lib = jpeg_library()
+    buf = np.frombuffer(data, np.uint8)
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    w, h, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    if lib.jpeg_header(buf.ctypes.data, buf.size, ctypes.byref(w), ctypes.byref(h),
+                       ctypes.byref(c), err, _ERR_LEN):
+        raise ValueError(f"{name}: {err.value.decode()}")
+    shape = (h.value, w.value) if c.value == 1 else (h.value, w.value, c.value)
+    out = np.empty(shape, np.uint8)
+    if lib.jpeg_decode(buf.ctypes.data, buf.size, out.ctypes.data, out.size,
+                       err, _ERR_LEN):
+        raise ValueError(f"{name}: {err.value.decode()}")
+    return out
+
+
+def read_jpeg(path: str) -> Tuple[np.ndarray, str]:
+    """(pixels, mode) of a baseline JPEG file: [H, W, 3] 'RGB' or [H, W]
+    'L', as np.array(Image.open(path)) and its .mode give them."""
+    with open(path, "rb") as f:
+        pixels = decode_jpeg(f.read(), path)
+    return pixels, ("L" if pixels.ndim == 2 else "RGB")
+
+
+def read_any(path: str) -> Tuple[np.ndarray, str, Optional[List[int]]]:
+    """(pixels, mode, palette) of a PNG or JPEG file (read_png's result;
+    a JPEG has no palette)."""
+    if is_png(path):
+        return read_png(path)
+    return (*read_jpeg(path), None)
+
+
 def read_image(path: str) -> np.ndarray:
     """An image file as [H, W, 3] uint8 RGB (Image.open(path).convert('RGB')):
-    PNG by read_png, anything else through Pillow."""
-    if is_png(path):
-        return to_rgb(*read_png(path))
-    image = require_pillow().open(path)
-    return np.asarray(image.convert("RGB"), np.uint8)
+    PNG by read_png, anything else by read_jpeg."""
+    return to_rgb(*read_any(path))
+
+
+def l24_luma(rgb: np.ndarray) -> np.ndarray:
+    """Pillow's L24 luma of [..., 3] uint8 (Convert.c): (r*19595 + g*38470
+    + b*7471 + 0x8000) >> 16."""
+    v = rgb.astype(np.int64)
+    return ((v[..., 0] * 19595 + v[..., 1] * 38470 + v[..., 2] * 7471 + 0x8000)
+            >> 16).astype(np.uint8)
+
+
+def convert_mask(pixels: np.ndarray, mode: str, palette: Optional[List[int]],
+                 target: str) -> np.ndarray:
+    """Image.convert(target) of a mask read by read_any, for the two
+    conversions the training datasets make: 'L' (from L, P, RGB, RGBA and
+    LA: Pillow's L24 luma of the colour, the palette's for P) and 'P' (the
+    indices of P, a copy of L). Any other mode raises, naming it."""
+    if target == "L":
+        if mode == "L":
+            return pixels
+        if mode == "LA":
+            return np.ascontiguousarray(pixels[..., 0])
+        if mode in ("RGB", "RGBA"):
+            return l24_luma(pixels[..., :3])
+        if mode == "P":
+            table = np.zeros((256, 3), np.uint8)
+            entries = np.asarray(palette, np.uint8).reshape(-1, 3)[:256]
+            table[:len(entries)] = entries
+            return l24_luma(table)[pixels]
+    elif target == "P":
+        if mode in ("P", "L"):
+            return pixels
+    else:
+        raise ValueError(f"convert_mask converts to 'L' or 'P', not {target!r}")
+    raise ValueError(f"a mask of mode {mode!r} cannot be converted to {target!r}")
+
+
+def read_mask(path: str, target: str) -> np.ndarray:
+    """np.array(Image.open(path).convert(target)) for target 'L' or 'P'."""
+    return convert_mask(*read_any(path), target)
 
 
 # ----------------------------------------------------------------- PNG write

@@ -282,19 +282,21 @@ def test_apply_overrides_match_cutie_tpu():
 
 
 def test_jpeg_needs_pillow(tmp_path, monkeypatch):
-    """A JPEG read or a visualizing ResultSaver without Pillow raises an
-    ImportError that names Pillow; PNG still reads."""
+    """Only writing JPEG needs Pillow: with Pillow missing, a JPEG still
+    reads (the port's decoder, equal to Pillow's decode), PNG reads, and a
+    visualizing ResultSaver, which writes JPEGs, raises an ImportError that
+    names Pillow."""
     from cutie_tpu_torch.inference.object_manager import ObjectManager
     from cutie_tpu_torch.utils.results import ResultSaver
 
     rgb = np.random.default_rng(RNG_SEED).integers(0, 256, (8, 8, 3)).astype(np.uint8)
     Image.fromarray(rgb).save(tmp_path / "a.jpg")
+    want = np.array(Image.open(tmp_path / "a.jpg").convert("RGB"))
     image_io.write_png(str(tmp_path / "a.png"), rgb)
     for name in [m for m in sys.modules if m == "PIL" or m.startswith("PIL.")]:
         monkeypatch.setitem(sys.modules, name, None)
     monkeypatch.setitem(sys.modules, "PIL", None)
-    with pytest.raises(ImportError, match="Pillow"):
-        image_io.read_image(str(tmp_path / "a.jpg"))
+    np.testing.assert_array_equal(image_io.read_image(str(tmp_path / "a.jpg")), want)
     with pytest.raises(ImportError, match="Pillow"):
         ResultSaver(str(tmp_path), "v", dataset="d17-val",
                     object_manager=ObjectManager(), use_long_id=False,

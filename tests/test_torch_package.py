@@ -70,7 +70,10 @@ def test_every_module_imports_without_optional_packages():
             "cutie_tpu_torch.training.trainer",
             "cutie_tpu_torch.utils.log_integrator", "cutie_tpu_torch.utils.logger",
             "cutie_tpu_torch.utils.time_estimator",
-            "cutie_tpu_torch.utils.image_saver"} <= set(modules)
+            "cutie_tpu_torch.utils.image_saver", "cutie_tpu_torch.data.augment",
+            "cutie_tpu_torch.data.static_dataset", "cutie_tpu_torch.data.vos_dataset",
+            "cutie_tpu_torch.data.loader", "cutie_tpu_torch.data.setup_training_data",
+            "cutie_tpu_torch.scripts.convert_burst_to_vos_train"} <= set(modules)
 
 
 def test_cuda_sources_are_plain_c():
