@@ -83,6 +83,18 @@ Phases, each printing one JSON line with its wall seconds:
              max_skip; ms a step with the loader feeding it against phase
              train's in-memory step, and the loader's wait a step; neither
              read kernel is launched;
+  ritm       RITM click segmentation (cutie_tpu_torch/ritm/): the host C++
+             dist-map library built into _build/ and held to the torch maps
+             on the card; HRNet-18/OCR-64 loaded strictly from
+             tests/golden/ritm_state_dict.npz, its forward held to
+             ritm_stages.npz and to the CPU's; ClickController (the GUI's
+             predictor parameters) on frame 0 of the synthetic 480x854
+             video with bench.py's two-pass protocol, with NoBRS and
+             f-BRS-B, each in fp32 and amp: the median warm click of the
+             second pass, L-BFGS evaluations a click, probabilities in
+             [0, 1], fp32 masks against a CPU controller's; DeepLab on
+             seeded random weights, card against CPU; neither read kernel
+             is launched;
   kernels    one line listing every ported kernel.
 The last line is {"ok": true, "device": {...}}. Any failure raises and the
 script exits non-zero. It needs a CUDA device and the repository around it.
@@ -113,7 +125,11 @@ from cutie_tpu_torch.ops import cuda_build, read_kernel
 from cutie_tpu_torch.ops.memory import (_float_order_key, get_similarity,
                                         get_similarity_expanded, readout,
                                         softmax_affinity, topk_threshold)
+from cutie_tpu_torch.models.layers import FrozenBatchNorm
 from cutie_tpu_torch.ops.resize import bilinear_resize
+from cutie_tpu_torch.ritm import dist_maps
+from cutie_tpu_torch.ritm.deeplab import DeepLabISModel
+from cutie_tpu_torch.ritm.utils import ClickController, load_is_model
 from cutie_tpu_torch.scripts.merge_multi_scale import merge
 from cutie_tpu_torch.train import train_config
 from cutie_tpu_torch.training.train_forward import train_forward
@@ -121,6 +137,7 @@ from cutie_tpu_torch.training.trainer import Trainer
 from cutie_tpu_torch.utils.get_default_model import (apply_object_surgery, build_model,
                                                      load_torch_npz,
                                                      set_fp32_precision)
+from cutie_tpu_torch.utils import host_build
 from cutie_tpu_torch.utils.image_io import decode_jpeg, read_image, read_png, write_png
 from cutie_tpu_torch.utils.logger import TensorboardLogger
 from cutie_tpu_torch.utils.palette import davis_palette
@@ -1137,13 +1154,13 @@ def train_steps(trainer, data, steps, first_it=0):
     return losses, ms, torch.cuda.max_memory_allocated()
 
 
-def profiled_step(trainer, data, it, step_ms):
-    """One do_pass under torch.profiler: device time, kernel launches, the
-    ten largest kernels, and the busy share against `step_ms`, the
-    unprofiled step time."""
+def profiled(fn, wall_ms):
+    """fn() under torch.profiler: device time, kernel launches, the ten
+    largest kernels, and the busy share against `wall_ms`, fn's unprofiled
+    wall time."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        trainer.do_pass(data, it, torch.Generator().manual_seed(0))
+        fn()
         torch.cuda.synchronize()
     evs = [ev for ev in prof.key_averages()
            if getattr(ev, "device_type", None) == DeviceType.CUDA
@@ -1151,9 +1168,15 @@ def profiled_step(trainer, data, it, step_ms):
     kernel_ms = sum(ev.self_device_time_total for ev in evs) / 1e3
     top = sorted(evs, key=lambda ev: -ev.self_device_time_total)[:10]
     return {"kernel_ms": kernel_ms, "device_ops": sum(ev.count for ev in evs),
-            "busy_share": kernel_ms / step_ms if kernel_ms else None,
+            "busy_share": kernel_ms / wall_ms if kernel_ms else None,
             "top_kernels": [{"name": ev.key[:100], "count": ev.count,
                              "ms": ev.self_device_time_total / 1e3} for ev in top]}
+
+
+def profiled_step(trainer, data, it, step_ms):
+    """One do_pass under torch.profiler (profiled)."""
+    return profiled(lambda: trainer.do_pass(data, it, torch.Generator().manual_seed(0)),
+                    step_ms)
 
 
 def run_stage(name, cfg, stage, model, data, steps, profile=False,
@@ -1534,6 +1557,186 @@ def phase_train_entry(in_memory_step_ms=None):
     return launches
 
 
+# ---------------------------------------------------------------- RITM
+
+RITM_WEIGHTS = GOLDEN / "ritm_state_dict.npz"   # random values at the shipped widths
+RITM_RTOL, RITM_ATOL = 2e-3, 5e-3   # tests/test_ritm.py:65, the golden forward
+# The card's fp32 forward against the CPU's, and DeepLab's: cuDNN (TF32 off)
+# and the CPU's kernels sum in other orders; 1e-4 of the logits' largest
+# magnitude is ~100 times the fp32 rounding seen in the stream phases.
+RITM_CARD_CPU_REL = 1e-4
+# The BFS against the vectorised maps: the same fp32 formula, contracted to
+# an FMA on the card: relative 1e-6 (an ulp is 6e-8).
+DIST_MAPS_RTOL = 1e-6
+CLICK_IOU_MIN = 0.99    # NoBRS fp32 masks, card against CPU, every click
+CLICKS = 5              # bench.py:144-170: an anchor click, then 5, in two passes
+
+
+def click_pass(ctrl, image, h, w):
+    """bench.py:bench_click_latency's pass: the anchor click at (w/3, h/3),
+    then CLICKS clicks 10 px apart, alternately positive and negative; the
+    anchor's and each click's wall ms (the probabilities fetched to the
+    host), the outputs and, with f-BRS, each click's L-BFGS evaluations."""
+    ctrl.unanchor()
+    t0 = time.perf_counter()
+    outs = [ctrl.interact(image, w // 3, h // 3, True)]
+    anchor_ms = (time.perf_counter() - t0) * 1e3
+    ms, evals = [], []
+    for i in range(CLICKS):
+        t0 = time.perf_counter()
+        outs.append(ctrl.interact(image, w // 3 + 10 * (i + 1), h // 3, i % 2 == 0))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        functor = getattr(ctrl.controller.predictor, "opt_functor", None)
+        evals.append(functor.n_evals if functor is not None else 0)
+    return anchor_ms, ms, evals, outs
+
+
+def mask_iou(a, b):
+    a, b = a > 0.5, b > 0.5
+    union = np.logical_or(a, b).sum()
+    return float(np.logical_and(a, b).sum() / union) if union else 1.0
+
+
+def ritm_dist_maps():
+    """The host C++ BFS (built into _build/) against the torch maps on the
+    card, at 480x854 on random whole-pixel clicks (8 positive, 8 negative,
+    3 of each padding)."""
+    t0 = time.perf_counter()
+    dist_maps.library()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    pts = np.concatenate([rng.integers(0, (480, 854), size=(16, 2)),
+                          np.arange(16)[:, None]], 1).astype(np.float32)
+    pts[[5, 6, 7, 13, 14, 15]] = -1
+    bfs = dist_maps.get_dist_maps_cpu(pts, 480, 854, 5.0)
+    card = dist_maps.get_dist_maps(torch.from_numpy(pts)[None].cuda(), 480, 854, 5.0)
+    card = card[0].cpu().numpy()
+    err = np.abs(bfs - card)
+    return {"library": host_build.library_path(dist_maps.SOURCE).name,
+            "build_seconds": build_s, "max_abs_err": float(err.max()),
+            "max_rel_err": float((err / np.maximum(np.abs(bfs), 1e-30)).max()),
+            "ok": bool(np.allclose(card, bfs, rtol=DIST_MAPS_RTOL, atol=0))}
+
+
+def ritm_forward():
+    """HRNet-18/OCR-64 (the shipped checkpoint's configuration,
+    tools/gen_golden.py:441-477) loaded strictly from the golden state dict
+    by load_is_model on the card: the recorded forward (ritm_stages.npz),
+    and the card against the CPU on it and on a 480x854 input with six
+    clicks."""
+    rec = dict(np.load(GOLDEN / "ritm_stages.npz"))
+    rng = np.random.default_rng(1)
+    image480 = np.concatenate([synth_frames_480(1)[0][0], rng.random((1, 480, 854))]
+                              ).astype(np.float32)[None]
+    pts480 = np.full((1, 8, 3), -1.0, np.float32)
+    pts480[0, :4] = [[160, 284, 0], [200, 300, 1], [300, 500, 2], [-1, -1, -1]]
+    pts480[0, 4:7] = [[100, 700, 3], [400, 100, 4], [50, 50, 5]]
+    outs = {}
+    for device in ("cuda", "cpu"):
+        model = load_is_model(str(RITM_WEIGHTS), device)
+        with torch.no_grad():
+            outs[device] = [model(torch.from_numpy(x).to(device),
+                                  torch.from_numpy(p).to(device))["instances"].cpu().numpy()
+                            for x, p in ((rec["image"], rec["points"]), (image480, pts480))]
+    golden_err = float(np.abs(outs["cuda"][0] - rec["instances"]).max())
+    golden_ok = bool(np.allclose(outs["cuda"][0], rec["instances"],
+                                 rtol=RITM_RTOL, atol=RITM_ATOL))
+    rel = [float(np.abs(c - p).max() / np.abs(p).max())
+           for c, p in zip(outs["cuda"], outs["cpu"])]
+    return {"golden_max_abs_err": golden_err, "golden_ok": golden_ok,
+            "card_vs_cpu_rel_err": dict(zip(("golden_input", "480x854"), rel)),
+            "ok": golden_ok and max(rel) <= RITM_CARD_CPU_REL
+            and all(np.isfinite(o).all() for o in outs["cuda"])}
+
+
+def ritm_clicks():
+    """ClickController (f-BRS-B and NoBRS, fp32 and amp) on the golden
+    weights on the card, on frame 0 of the synthetic 480x854 video, with
+    bench.py's two-pass protocol; the median warm click of the second pass,
+    L-BFGS evaluations a click, the probabilities' range, a third pass
+    under torch.profiler; fp32 masks against a CPU controller's on the
+    same clicks."""
+    frame = synth_frames_480(1)[0][0]
+    h, w = frame.shape[1:]
+    runs, ok = {}, True
+    for brs_mode in ("NoBRS", "f-BRS-B"):
+        cpu_outs = None
+        for amp in (False, True):
+            ctrl = ClickController(str(RITM_WEIGHTS), brs_mode=brs_mode, amp=amp)
+            _, first_ms, _, _ = click_pass(ctrl, frame, h, w)
+            anchor_ms, ms, evals, outs = click_pass(ctrl, frame, h, w)
+            valid = all(np.isfinite(o).all() and o.min() >= 0.0 and o.max() <= 1.0
+                        and o.shape == (1, 1, h, w) for o in outs)
+            run = {"median_warm_click_ms": float(np.median(ms)), "click_ms": ms,
+                   "first_pass_click_ms": first_ms, "lbfgs_evals": evals,
+                   "probabilities_valid": valid,
+                   "profiled_pass": profiled(lambda: click_pass(ctrl, frame, h, w),
+                                             anchor_ms + sum(ms))}
+            if not amp:
+                fp32_outs = outs
+                cpu = ClickController(str(RITM_WEIGHTS), brs_mode=brs_mode,
+                                      device="cpu")
+                cpu_outs = click_pass(cpu, frame, h, w)[3]
+                run["card_vs_cpu_mask_iou"] = [mask_iou(a, b)
+                                               for a, b in zip(outs, cpu_outs)]
+                if brs_mode == "NoBRS":
+                    ok &= min(run["card_vs_cpu_mask_iou"]) >= CLICK_IOU_MIN
+            else:
+                run["amp_vs_fp32_mask_iou"] = [mask_iou(a, b)
+                                               for a, b in zip(outs, fp32_outs)]
+            ok &= valid
+            runs[f"{brs_mode} {'amp' if amp else 'fp32'}"] = run
+            del ctrl
+            torch.cuda.empty_cache()
+    ok &= all(e >= 1 for e in runs["f-BRS-B fp32"]["lbfgs_evals"])
+    return {"runs": runs, "ok": bool(ok)}
+
+
+def ritm_deeplab():
+    """DeepLabISModel on seeded random weights (and BN statistics drawn as
+    tools/gen_golden.py draws them), card against CPU at 480x854."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = DeepLabISModel().eval()
+        g = torch.Generator().manual_seed(1)
+        for mod in model.modules():
+            if isinstance(mod, FrozenBatchNorm):
+                mod.running_mean.copy_(torch.randn(mod.running_mean.shape, generator=g) * 0.05)
+                mod.running_var.copy_(0.5 + torch.rand(mod.running_var.shape, generator=g))
+    rng = np.random.default_rng(2)
+    image = torch.from_numpy(rng.random((1, 4, 480, 854)).astype(np.float32))
+    points = torch.tensor([[[200.0, 300, 0], [-1, -1, -1], [100, 600, 0], [-1, -1, -1]]])
+    with torch.no_grad():
+        cpu = model(image, points)["instances"].numpy()
+        model.cuda()
+        card = model(image.cuda(), points.cuda())["instances"].cpu().numpy()
+    rel = float(np.abs(card - cpu).max() / np.abs(cpu).max())
+    return {"card_vs_cpu_rel_err": rel, "logits_max_abs": float(np.abs(cpu).max()),
+            "ok": rel <= RITM_CARD_CPU_REL and bool(np.isfinite(card).all())}
+
+
+def phase_ritm():
+    """RITM click segmentation (cutie_tpu_torch/ritm/) on the card: the
+    dist-map library, the golden HRNet forward, the click controller's
+    latency and L-BFGS evaluations, DeepLab; neither read kernel is
+    launched."""
+    t0 = time.perf_counter()
+    set_fp32_precision()
+    read_kernel.radix_topk_readout.launches = 0
+    read_kernel.fused_topk_readout.launches = 0
+    res = {"dist_maps": ritm_dist_maps(), "forward": ritm_forward(),
+           "clicks": ritm_clicks(), "deeplab": ritm_deeplab()}
+    launches = {"radix_topk_readout": read_kernel.radix_topk_readout.launches,
+                "fused_topk_readout": read_kernel.fused_topk_readout.launches}
+    ok = all(r["ok"] for r in res.values()) and not any(launches.values())
+    emit({"phase": "ritm", **res, "launches": launches,
+          "nvidia_smi": nvidia_smi_line(), "ok": ok,
+          "seconds": time.perf_counter() - t0})
+    if not ok:
+        raise RuntimeError("ritm phase failed")
+    return launches
+
+
 def phase_kernel(lt_case, k=30):
     t0 = time.perf_counter()
     rng = np.random.default_rng(0)
@@ -1687,6 +1890,7 @@ def main():
     phase_scripting()
     by_path["train"], in_memory_step_ms = phase_train()
     by_path["train_entry"] = phase_train_entry(in_memory_step_ms)
+    by_path["ritm"] = phase_ritm()
     kres = phase_kernel(lres["case"])
     fres = phase_fused(sres["case"], kres["cases"]["lvos600"])
     t0 = time.perf_counter()

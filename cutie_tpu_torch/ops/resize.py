@@ -2,7 +2,9 @@
 
 The port's counterpart of cutie_tpu/ops/resize.py. The reference only
 area-downsamples by integer factors (2, 4, 16), where 'area' equals average
-pooling, and only upsamples bilinearly with align_corners=False.
+pooling, and upsamples bilinearly with align_corners=False, except in RITM
+(HRNet's fusion, its logits, the click predictor's transforms), which
+resizes with align_corners=True.
 """
 from __future__ import annotations
 
@@ -40,6 +42,47 @@ def area_downsample(x: torch.Tensor, factor: int) -> torch.Tensor:
         raise ValueError(f"{(h, w)} is not divisible by {factor}")
     y = x.reshape(*x.shape[:-2], h // factor, factor, w // factor, factor)
     return y.mean(dim=(-3, -1))
+
+
+def bilinear_resize_align_corners(x: torch.Tensor, out_h: int, out_w: int
+                                  ) -> torch.Tensor:
+    """Corner-aligned bilinear resize of the last two axes of [..., C, H, W]
+    (F.interpolate(mode='bilinear', align_corners=True), the operator the
+    reference calls)."""
+    if tuple(x.shape[-2:]) == (out_h, out_w):
+        return x
+    x4, lead = _as_4d(x)
+    y = F.interpolate(x4, size=(out_h, out_w), mode="bilinear",
+                      align_corners=True)
+    return y.reshape(*lead, *y.shape[1:])
+
+
+def align_corners_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """[n_out, n_in] align-corners interpolation matrix: row i holds the two
+    taps of output coordinate i."""
+    m = np.zeros((n_out, n_in), np.float32)
+    if n_out == 1 or n_in == 1:
+        m[:, 0] = 1.0
+        return m
+    ys = np.arange(n_out, dtype=np.float64) * ((n_in - 1) / (n_out - 1))
+    y0 = np.clip(np.floor(ys).astype(np.int64), 0, n_in - 1)
+    y1 = np.clip(y0 + 1, 0, n_in - 1)
+    wy = (ys - y0).astype(np.float32)
+    np.add.at(m, (np.arange(n_out), y0), 1.0 - wy)
+    np.add.at(m, (np.arange(n_out), y1), wy)
+    return m
+
+
+def bilinear_resize_align_corners_mm(x: torch.Tensor, out_h: int, out_w: int
+                                     ) -> torch.Tensor:
+    """The same resize as two fp32 matmuls over [..., H, W] (the weights of
+    bilinear_resize_align_corners up to summation order). Its backward is two
+    matmuls again, with no scatter: the f-BRS objective differentiates it on
+    every L-BFGS evaluation."""
+    wy = torch.from_numpy(align_corners_matrix(x.shape[-2], out_h)).to(x.device)
+    wx = torch.from_numpy(align_corners_matrix(x.shape[-1], out_w)).to(x.device)
+    with torch.autocast(x.device.type, enabled=False):
+        return wy @ x.float() @ wx.T
 
 
 def nearest_exact_resize_np(mask: np.ndarray, out_h: int, out_w: int

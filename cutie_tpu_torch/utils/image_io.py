@@ -23,17 +23,15 @@ datasets, result saver, demos and scripts:
 from __future__ import annotations
 
 import ctypes
-import hashlib
+import functools
 import math
-import os
 import struct
-import subprocess
-import threading
 import zlib
-from pathlib import Path
 from typing import List, Optional, Tuple
 
 import numpy as np
+
+from cutie_tpu_torch.utils.host_build import CSRC_HOST_DIR, host_library
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> (channels, Pillow's mode)
@@ -201,43 +199,24 @@ def to_rgb(pixels: np.ndarray, mode: str,
 
 # ----------------------------------------------------------------- JPEG read
 
-JPEG_SOURCE = Path(__file__).resolve().parent.parent / "csrc_host" / "jpeg_decode.cpp"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
-_JPEG_LOCK = threading.Lock()
-_JPEG_LIB: List[ctypes.CDLL] = []
+JPEG_SOURCE = CSRC_HOST_DIR / "jpeg_decode.cpp"
 _ERR_LEN = 256
 
 
+@functools.cache
 def jpeg_library() -> ctypes.CDLL:
-    """The decoder's shared library, built with g++ at first use into
-    _build/, named by a hash of the source and the flags; raises if g++
-    fails or the library does not load."""
-    with _JPEG_LOCK:
-        if _JPEG_LIB:
-            return _JPEG_LIB[0]
-        digest = hashlib.sha256(" ".join(GXX_FLAGS).encode()
-                                + JPEG_SOURCE.read_bytes()).hexdigest()[:16]
-        so = BUILD_DIR / f"jpeg_decode-{digest}.so"
-        if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = ["g++", *GXX_FLAGS, "-o", str(tmp), str(JPEG_SOURCE)]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(f"g++ failed ({res.returncode}): "
-                                   f"{' '.join(cmd)}\n{res.stderr}")
-            os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
-        lib = ctypes.CDLL(str(so))
-        size_t, u8p, intp = ctypes.c_size_t, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)
-        lib.jpeg_header.argtypes = [u8p, size_t, intp, intp, intp,
-                                    ctypes.c_char_p, ctypes.c_int]
-        lib.jpeg_header.restype = ctypes.c_int
-        lib.jpeg_decode.argtypes = [u8p, size_t, u8p, size_t,
-                                    ctypes.c_char_p, ctypes.c_int]
-        lib.jpeg_decode.restype = ctypes.c_int
-        _JPEG_LIB.append(lib)
-        return lib
+    """The decoder's shared library (utils/host_build.py: built with g++ at
+    first use into _build/, named by a hash of the source and the flags;
+    raises if g++ fails or the library does not load)."""
+    lib = host_library(JPEG_SOURCE)
+    size_t, u8p, intp = ctypes.c_size_t, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)
+    lib.jpeg_header.argtypes = [u8p, size_t, intp, intp, intp,
+                                ctypes.c_char_p, ctypes.c_int]
+    lib.jpeg_header.restype = ctypes.c_int
+    lib.jpeg_decode.argtypes = [u8p, size_t, u8p, size_t,
+                                ctypes.c_char_p, ctypes.c_int]
+    lib.jpeg_decode.restype = ctypes.c_int
+    return lib
 
 
 def decode_jpeg(data: bytes, name: str = "JPEG data") -> np.ndarray:

@@ -73,7 +73,8 @@ def test_every_module_imports_without_optional_packages():
             "cutie_tpu_torch.utils.image_saver", "cutie_tpu_torch.data.augment",
             "cutie_tpu_torch.data.static_dataset", "cutie_tpu_torch.data.vos_dataset",
             "cutie_tpu_torch.data.loader", "cutie_tpu_torch.data.setup_training_data",
-            "cutie_tpu_torch.scripts.convert_burst_to_vos_train"} <= set(modules)
+            "cutie_tpu_torch.scripts.convert_burst_to_vos_train",
+            "cutie_tpu_torch.ritm.utils", "cutie_tpu_torch.ritm.brs"} <= set(modules)
 
 
 def test_cuda_sources_are_plain_c():
