@@ -95,6 +95,24 @@ Phases, each printing one JSON line with its wall seconds:
              [0, 1], fp32 masks against a CPU controller's; DeepLab on
              seeded random weights, card against CPU; neither read kernel
              is launched;
+  gui        the interactive GUI's controller (cutie_tpu_torch/gui/): (a)
+             the stream phase's golden through MainController (a workspace
+             of PNGs, the first mask imported as a palette PNG, on_propagate
+             forward, close), the saved masks held to the golden, kernel #1
+             launched once a frame after the first; (b) the GUI's own
+             session at interactive_demo.py's defaults (amp, long-term
+             memory, max_internal_size 480, two objects) on the committed
+             480x854 JPEG frames: f-BRS-B clicks on both objects, commit,
+             propagation forward, a click on the last frame, propagation
+             backward, mem_every changed, binary-mask export, video export
+             (an ImportError naming PyAV and cv2 where neither is
+             installed); probabilities finite, a mask and a visualization
+             for every frame, each visualization JPEG >= 30 dB PSNR from its
+             image, the memory gauges against the memorize calls; ms a
+             click and a propagated frame (beside the stream phase's), the
+             save queue's drain; (c) the JPEG encoder (g++ here) byte for
+             byte against the committed Pillow and cv2 references in
+             tests/torch_fixtures/jpeg_enc/, ms to encode 480x854 at q95;
   kernels    one line listing every ported kernel.
 The last line is {"ok": true, "device": {...}}. Any failure raises and the
 script exits non-zero. It needs a CUDA device and the repository around it.
@@ -117,9 +135,10 @@ import torch
 from torch.autograd import DeviceType
 
 from cutie_tpu_torch import train as train_entry
-from cutie_tpu_torch.config import eval_config
+from cutie_tpu_torch.config import Config, eval_config
 from cutie_tpu_torch.data.setup_training_data import setup_main_training_datasets
 from cutie_tpu_torch.eval_vos import eval_vos
+from cutie_tpu_torch.gui.main_controller import FETCH_DEPTH, MainController
 from cutie_tpu_torch.inference import InferenceCore
 from cutie_tpu_torch.ops import cuda_build, read_kernel
 from cutie_tpu_torch.ops.memory import (_float_order_key, get_similarity,
@@ -138,7 +157,8 @@ from cutie_tpu_torch.utils.get_default_model import (apply_object_surgery, build
                                                      load_torch_npz,
                                                      set_fp32_precision)
 from cutie_tpu_torch.utils import host_build
-from cutie_tpu_torch.utils.image_io import decode_jpeg, read_image, read_png, write_png
+from cutie_tpu_torch.utils.image_io import (JPEG_ENCODE_SOURCE, decode_jpeg, encode_jpeg,
+                                            read_image, read_jpeg, read_png, write_png)
 from cutie_tpu_torch.utils.logger import TensorboardLogger
 from cutie_tpu_torch.utils.palette import davis_palette
 from cutie_tpu_torch.utils.synth_video import synth_frames_480, synth_gt_masks_480
@@ -694,7 +714,7 @@ def phase_stream(k=30):
         raise RuntimeError("stream phase failed")
     return dict(launches=launches, max_abs=res["readout_max_abs"], case=case,
                 fps=fps_steady(frame_ms), kernel_ms_per_frame=kernel_ms,
-                id_maps=id_maps, **times)
+                id_maps=id_maps, frame_ms=frame_ms, **times)
 
 
 # tools/gen_golden.py:stream480_cfg(True), the settings the long-term golden
@@ -1737,6 +1757,296 @@ def phase_ritm():
     return launches
 
 
+# ------------------------------------------------------------------- the GUI
+
+GUI_PSNR_MIN = 30.0   # dB, a saved visualization JPEG against its image
+
+
+def record_saves(ctl):
+    """Record, for every save_current_mask, its wall time and whether the
+    probabilities were finite, and every visualization queued for a frame
+    (the images its JPEG may have been written from: two save threads may
+    write one frame's file)."""
+    log = {"t": [], "finite": [], "vis": {}}
+    save_mask, save_vis = ctl.save_current_mask, ctl.res_man.save_visualization
+
+    def save():
+        log["t"].append(time.perf_counter())
+        log["finite"].append(bool(np.isfinite(ctl.curr_prob).all()))
+        save_mask()
+
+    def vis(ti, mode, image):
+        log["vis"].setdefault(ti, []).append(image)
+        save_vis(ti, mode, image)
+
+    ctl.save_current_mask, ctl.res_man.save_visualization = save, vis
+    return log
+
+
+def propagation_ms(log, first_save):
+    """Wall ms between the saves of consecutive frames of a propagation,
+    from its own first frame's save (index first_save). The drain runs
+    FETCH_DEPTH frames behind the steps: the first interval spans
+    FETCH_DEPTH + 1 steps, the last FETCH_DEPTH none; warm_ms drops them
+    and one more frame at the start."""
+    t = log["t"][first_save:]
+    return [1e3 * (b - a) for a, b in zip(t, t[1:])]
+
+
+def warm_ms(frame_ms):
+    return float(np.median(frame_ms[2:-FETCH_DEPTH]))
+
+
+def host_ms_median(fn, iters=5):
+    """Median host wall ms of fn() (host work only: nothing on the card)."""
+    ms = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(ms))
+
+
+def psnr(a, b):
+    mse = float(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
+    return float("inf") if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
+
+
+def gui_replay(root):
+    """(a) The 480p golden through the GUI: the stream phase's 12 frames as
+    a workspace of PNGs (max_overall_size -1: copied), its first mask
+    imported as a palette PNG, on_propagate forward with cutie-base on the
+    trained weights at the golden's d17 settings in fp32 (TF32 off), then
+    close(); the saved masks, read back, held to the golden; kernel #1
+    launched once a frame after the first."""
+    rec, frames, mask0 = golden_video("stream480_work_trained.npz")
+    t = int(rec["t"])
+    write_davis_video(root, frames[:t], mask0)
+    model_cfg = eval_config("base")
+    model_cfg.merge({"mem_every": 5, "top_k": 30, "stagger_updates": 5,
+                     "max_mem_frames": 5, "use_long_term": False,
+                     "max_internal_size": -1})
+    network = build_model(model_cfg, device="cuda", state_dict=trained_weights())
+    cfg = Config({"images": str(root / "JPEGImages" / "video1"), "video": None,
+                  "workspace": str(root / "ws_replay"), "num_objects": 3,
+                  "max_overall_size": -1, "max_internal_size": -1, "mem_every": 5,
+                  "use_long_term": False, "buffer_size": 20, "save_queue_size": 20,
+                  "num_save_threads": 4})
+    ctl = MainController(cfg, bundle=(network, model_cfg), click_ckpt=str(RITM_WEIGHTS))
+    ctl.import_mask(str(root / "Annotations" / "video1" / "00000.png"))
+    log = record_saves(ctl)
+    before = read_kernel.radix_topk_readout.launches
+    t0 = time.perf_counter()
+    ctl.on_propagate("forward")
+    propagate_s = time.perf_counter() - t0
+    launches = read_kernel.radix_topk_readout.launches - before
+    t0 = time.perf_counter()
+    ctl.close()
+    drain_s = time.perf_counter() - t0
+    saved = [read_png(str(root / "ws_replay" / "masks" / f"{ti:05d}.png"))[0]
+             for ti in range(t)]
+    ious = stream_ious(saved, rec["masks"])
+    frame_ms = propagation_ms(log, 0)
+    ok = iou_ok(ious) and launches == t - 1 and all(log["finite"])
+    return {"frames": t, "launches": launches, "iou_median": float(np.median(ious)),
+            "iou_min": float(ious.min()), "propagate_seconds": propagate_s,
+            "ms_per_frame": 1e3 * propagate_s / (t - 1), "frame_ms": frame_ms,
+            "warm_frame_ms_median": warm_ms(frame_ms),
+            "save_drain_seconds": drain_s, "ok": bool(ok)}
+
+
+def object_point(mask, obj, k=0):
+    """A pixel (x, y) of object obj in a mask: the k-th of 8 spread over its
+    pixels in raster order."""
+    ys, xs = np.nonzero(mask == obj)
+    i = (len(ys) * (2 * k + 1)) // 16
+    return int(xs[i]), int(ys[i])
+
+
+def gui_session(root):
+    """(b) The GUI's own session at interactive_demo.py's defaults (amp,
+    long-term memory, mem_every 5, max_internal_size 480, max_overall_size
+    1080) with two objects, on the committed 480x854 JPEG frames of
+    tests/torch_fixtures/vos/JPEGImages/synth_a, the model built by the
+    controller from the demo's config (cutie-base, the trained weights),
+    RITM f-BRS-B on ritm_state_dict.npz: 3 clicks on object 1, 2 on
+    object 2, commit, propagate forward, a click on the last frame,
+    propagate backward, mem_every 3, binary-mask and video export, close."""
+    from cutie_tpu_torch import interactive_demo
+
+    frames_dir = FIXTURES / "vos" / "JPEGImages" / "synth_a"
+    gt = read_png(str(FIXTURES / "vos" / "Annotations" / "synth_a" / "00000.png"))[0]
+    args = interactive_demo.parse_args(
+        ["--images", str(frames_dir), "--workspace", str(root / "ws_session"),
+         "--num_objects", "2", "--weights", str(TRAINED_WEIGHTS),
+         "--ritm_weights", str(RITM_WEIGHTS)])
+    cfg = interactive_demo.gui_config(args)
+    t0 = time.perf_counter()
+    ctl = MainController(cfg, click_ckpt=args.ritm_weights, device=args.device)
+    build_s = time.perf_counter() - t0
+    ws = root / "ws_session"
+    names = ctl.res_man.names
+    log = record_saves(ctl)
+    memorized = {"ring": 0, "perm": 0, "consolidated": 0}
+    steps = ctl.processor.steps
+    memorize, consolidate = steps.memorize, steps.consolidate
+
+    def count_memorize(state, feats, selector, new_mask, *, mode, **kw):
+        memorized["perm" if mode == "all" else "ring"] += 1
+        return memorize(state, feats, selector, new_mask, mode=mode, **kw)
+
+    def count_consolidate(state, n, lt_keep=None):
+        memorized["consolidated"] += n
+        return consolidate(state, n, lt_keep)
+
+    steps.memorize, steps.consolidate = count_memorize, count_consolidate
+    gauges, click_ms = {}, []
+
+    def click(x, y, neg=False):
+        t1 = time.perf_counter()
+        ctl.click(x, y, is_neg=neg)
+        click_ms.append(1e3 * (time.perf_counter() - t1))
+
+    ctl.curr_object = 1
+    click(*object_point(gt, 1, 3))
+    click(*object_point(gt, 0, 5), neg=True)
+    click(*object_point(gt, 1, 6))
+    ctl.curr_object = 2
+    click(*object_point(gt, 2, 3))
+    click(*object_point(gt, 2, 6))
+    gauges["clicks"] = ctl.get_memory_gauges()
+    ctl.on_commit()
+    gauges["commit"] = ctl.get_memory_gauges()
+    first = len(log["t"])
+    t1 = time.perf_counter()
+    ctl.on_propagate("forward")
+    forward_s = time.perf_counter() - t1
+    forward_ms = propagation_ms(log, first)
+    gauges["forward"] = ctl.get_memory_gauges()
+    ctl.load_frame(ctl.T - 1)
+    click(*object_point(gt, 2, 4))
+    first = len(log["t"])
+    t1 = time.perf_counter()
+    ctl.on_propagate("backward")
+    backward_s = time.perf_counter() - t1
+    backward_ms = propagation_ms(log, first)
+    gauges["backward"] = ctl.get_memory_gauges()
+    counted = dict(memorized)
+    # a third propagation under the profiler, and the host's work a frame
+    profile = profiled(lambda: ctl.on_propagate("forward"), 1e3 * forward_s)
+    vis = ctl.visualize()
+    host_ms = {
+        "visualize_davis": host_ms_median(ctl.visualize),
+        "write_png_mask": host_ms_median(
+            lambda: write_png(str(root / "m.png"), ctl.curr_mask, davis_palette)),
+        "encode_jpeg_q95": host_ms_median(lambda: encode_jpeg(vis, 95)),
+        "read_jpeg_frame": host_ms_median(
+            lambda: read_image(str(frames_dir / "00000.jpg")))}
+    ctl.update_memory_config(mem_every=3)
+    mem_every_ok = ctl.processor.mem_every == 3
+    t1 = time.perf_counter()
+    ctl.close()
+    drain_s = time.perf_counter() - t1
+    ctl.export_binary_masks([1, 2])
+    binary = sorted(os.listdir(ws / "binary_masks"))
+    writer = any(importlib.util.find_spec(m) is not None for m in ("av", "cv2"))
+    try:
+        export = {"written": bool(ctl.export_video())}
+    except ImportError as e:
+        export = {"import_error": str(e)}
+    export_ok = (export.get("written", False) if writer
+                 else "PyAV" in export.get("import_error", "")
+                 and "cv2" in export["import_error"])
+
+    masks_ok = all((ws / "masks" / f"{n}.png").exists() for n in names)
+    vis_psnr = []
+    for ti, n in enumerate(names):
+        f = ws / "visualization" / "davis" / f"{n}.jpg"
+        decoded = read_jpeg(str(f))[0] if f.exists() else None
+        vis_psnr.append(max((psnr(decoded, img) for img in log["vis"].get(ti, [])),
+                            default=0.0) if decoded is not None else 0.0)
+    h, w = ctl.processor.internal_size(ctl.h, ctl.w)
+    tokens = -(-h // 16) * -(-w // 16)   # a frame's keys: stride 16, padded
+    g = gauges["backward"]
+    gauges_ok = (gauges["clicks"]["permanent"] == 0
+                 and gauges["commit"]["permanent"] == tokens
+                 and g["permanent"] == tokens
+                 and g["working"] == counted["ring"] - counted["consolidated"]
+                 and 0 < g["working"] <= g["working_max"] == ctl.processor.max_mem_frames
+                 and 0 <= g["long_term"] <= g["long_term_max"]
+                 and counted["perm"] == 1)
+    ok = (all(log["finite"]) and masks_ok and min(vis_psnr) >= GUI_PSNR_MIN
+          and gauges_ok and mem_every_ok and export_ok
+          and binary == [f"{n}.png" for n in names] and len(click_ms) == 6)
+    return {"frames": ctl.T, "size": [ctl.h, ctl.w], "controller_build_seconds": build_s,
+            "click_ms": click_ms, "median_warm_click_ms": float(np.median(click_ms[1:])),
+            "forward_seconds": forward_s, "forward_frame_ms": forward_ms,
+            "forward_ms_per_frame": 1e3 * forward_s / (ctl.T - 1),
+            "forward_warm_frame_ms_median": warm_ms(forward_ms),
+            "backward_warm_frame_ms_median": warm_ms(backward_ms),
+            "backward_seconds": backward_s, "backward_frame_ms": backward_ms,
+            "save_drain_seconds": drain_s, "gauges": gauges, "memorized": counted,
+            "profiled_forward": profile, "host_ms": host_ms,
+            "video_libraries": {m: importlib.util.find_spec(m) is not None
+                                for m in ("av", "cv2", "PIL")},
+            "consolidations": ctl.processor.consolidations,
+            "vis_psnr_min": min(vis_psnr), "masks_saved": masks_ok,
+            "probabilities_finite": all(log["finite"]), "mem_every_updated": mem_every_ok,
+            "binary_masks": len(binary), "export_video": export, "ok": bool(ok)}
+
+
+def gui_encoder():
+    """(c) The JPEG encoder built here with g++ against the committed
+    Pillow and cv2 references (tests/torch_fixtures/jpeg_enc/), byte for
+    byte; ms to encode a 480x854 frame at quality 95."""
+    enc = FIXTURES / "jpeg_enc"
+    manifest = json.loads((enc / "manifest.json").read_text())
+    results = {}
+    for fname, meta in sorted(manifest["files"].items()):
+        src = manifest["sources"][meta["source"]]
+        rgb = read_image(str(FIXTURES / src["file"]))
+        if src["crop"]:
+            (y0, y1), (x0, x1) = src["crop"]
+            rgb = np.ascontiguousarray(rgb[y0:y1, x0:x1])
+        results[fname] = encode_jpeg(rgb, meta["quality"]) == (enc / fname).read_bytes()
+    frame = read_image(str(FIXTURES / "vos" / "JPEGImages" / "synth_a" / "00000.jpg"))
+    ms = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        encode_jpeg(frame, 95)
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return {"library": host_build.library_path(JPEG_ENCODE_SOURCE).name,
+            "byte_equal": results, "encode_480x854_q95_ms_median": float(np.median(ms)),
+            "ok": len(results) == 6 and all(results.values())}
+
+
+def phase_gui(stream):
+    """The interactive GUI (cutie_tpu_torch/gui/) on the card: (a) the
+    golden replay through MainController, (b) the GUI's own session at the
+    demo's defaults, (c) the JPEG encoder against the committed
+    references. Kernel #1 runs in (a) and (b)."""
+    t0 = time.perf_counter()
+    read_kernel.radix_topk_readout.launches = 0
+    read_kernel.fused_topk_readout.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        replay = gui_replay(root)
+        session = gui_session(root)
+    launches = {"radix_topk_readout": read_kernel.radix_topk_readout.launches,
+                "fused_topk_readout": read_kernel.fused_topk_readout.launches}
+    encoder = gui_encoder()
+    ok = replay["ok"] and session["ok"] and encoder["ok"] and \
+        launches["fused_topk_readout"] == 0
+    emit({"phase": "gui", "replay": replay, "session": session, "encoder": encoder,
+          "stream_phase_frame_ms": stream["frame_ms"],
+          "stream_phase_warm_frame_ms_median": float(np.median(stream["frame_ms"][2:])),
+          "launches": launches, "nvidia_smi": nvidia_smi_line(), "ok": bool(ok),
+          "seconds": time.perf_counter() - t0})
+    if not ok:
+        raise RuntimeError("gui phase failed")
+    return launches
+
+
 def phase_kernel(lt_case, k=30):
     t0 = time.perf_counter()
     rng = np.random.default_rng(0)
@@ -1891,6 +2201,7 @@ def main():
     by_path["train"], in_memory_step_ms = phase_train()
     by_path["train_entry"] = phase_train_entry(in_memory_step_ms)
     by_path["ritm"] = phase_ritm()
+    by_path["gui"] = phase_gui(sres)
     kres = phase_kernel(lres["case"])
     fres = phase_fused(sres["case"], kres["cases"]["lvos600"])
     t0 = time.perf_counter()

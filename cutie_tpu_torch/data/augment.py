@@ -24,7 +24,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from cutie_tpu_torch.utils.image_io import l24_luma
+from cutie_tpu_torch.utils.image_io import l24_luma, resize_area
 
 IM_MEAN = (124, 116, 104)
 
@@ -178,13 +178,6 @@ def _linear_taps(in_size: int, out_size: int):
     return np.clip(s, 0, in_size - 1), np.clip(s + 1, 0, in_size - 1), w0, w1
 
 
-def _area2x(img: np.ndarray) -> np.ndarray:
-    """cv2's INTER_AREA at an exact 2x downscale: (a + b + c + d + 2) >> 2."""
-    v = img.astype(np.int32)
-    acc = v[0::2, 0::2] + v[0::2, 1::2] + v[1::2, 0::2] + v[1::2, 1::2]
-    return ((acc + 2) >> 2).astype(np.uint8)
-
-
 def resize(img: np.ndarray, out_w: int, out_h: int, nearest: bool) -> np.ndarray:
     """cv2.resize(img, (out_w, out_h), interpolation=INTER_NEAREST or
     INTER_LINEAR) of uint8 [H, W] or [H, W, C]."""
@@ -193,8 +186,8 @@ def resize(img: np.ndarray, out_w: int, out_h: int, nearest: bool) -> np.ndarray
         ys = np.minimum(np.floor(np.arange(out_h) * (1.0 / (out_h / h))).astype(np.int64), h - 1)
         xs = np.minimum(np.floor(np.arange(out_w) * (1.0 / (out_w / w))).astype(np.int64), w - 1)
         return img[ys[:, None], xs[None, :]]
-    if w == 2 * out_w and h == 2 * out_h:
-        return _area2x(img)
+    if w == 2 * out_w and h == 2 * out_h:   # cv2 takes INTER_AREA at exactly 2x
+        return resize_area(img, out_w, out_h)
     x0, x1, a0, a1 = _linear_taps(w, out_w)
     y0, y1, b0, b1 = _linear_taps(h, out_h)
     v = img.astype(np.int32)

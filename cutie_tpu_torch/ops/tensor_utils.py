@@ -56,13 +56,18 @@ def aggregate(prob: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.log(new_prob / (1.0 - new_prob))
 
 
-def aggregate_wbg_np(prob: np.ndarray, keep_bg: bool = False) -> np.ndarray:
+def aggregate_wbg_np(prob: np.ndarray, keep_bg: bool = False,
+                     hard: bool = False) -> np.ndarray:
     """Host-side soft aggregation + softmax: prob [K, H, W] -> softmax
-    probabilities, with the background channel when keep_bg."""
+    probabilities, with the background channel when keep_bg; `hard`
+    applies the x1000 low temperature of the GUI's interactions
+    (reference gui/interaction.py:15-27)."""
     prob = prob.astype(np.float32)
     bg = np.prod(1 - prob, axis=0, keepdims=True)
     new_prob = np.clip(np.concatenate([bg, prob], 0), 1e-7, 1 - 1e-7)
     logits = np.log(new_prob / (1 - new_prob))
+    if hard:
+        logits *= 1000  # very low temperature
     logits -= logits.max(0, keepdims=True)
     e = np.exp(logits)
     sm = e / e.sum(0, keepdims=True)

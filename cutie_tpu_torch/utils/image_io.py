@@ -1,24 +1,26 @@
-"""Image files for the eval harness, the training data and the scripts,
-without PIL.
+"""Image files for the eval harness, the training data, the scripts and the
+GUI, without PIL or cv2.
 
-The port's counterpart of every PIL.Image call in cutie_tpu's readers,
-datasets, result saver, demos and scripts:
+The port's counterpart of every PIL.Image and cv2 still-image call in
+cutie_tpu's readers, datasets, result saver, demos, scripts and GUI:
 - a PNG codec in zlib and numpy. It reads 8-bit grayscale, RGB, palette,
   grayscale-alpha and RGBA images, non-interlaced, with all five row
   filters; palette and grayscale images also packed at 1, 2 or 4 bits,
   decoded as Pillow decodes them (read_png). It writes 8-bit palette,
-  grayscale and RGB images (write_png). Interlaced and 16-bit files raise;
+  grayscale, RGB and RGBA images (write_png). Interlaced and 16-bit files
+  raise;
 - Pillow's BILINEAR and NEAREST resizes, bit for bit (resize_bilinear,
-  resize_nearest), and the readers' shorter-edge resize (resize_shorter);
-- a baseline JPEG decoder (read_jpeg), bit-equal to Pillow's decode: host
-  C++ in csrc_host/jpeg_decode.cpp, built with g++ at first use into
-  _build/ and called through ctypes, which releases the GIL, so that
-  loader threads decode in parallel;
+  resize_nearest), the readers' shorter-edge resize (resize_shorter), and
+  cv2's INTER_AREA downscale (resize_area);
+- a baseline JPEG decoder (read_jpeg), bit-equal to Pillow's decode, and a
+  baseline JPEG encoder (encode_jpeg, write_jpeg), byte-equal to Pillow's
+  save and to cv2.imwrite at the same quality: host C++ in
+  csrc_host/jpeg_decode.cpp and csrc_host/jpeg_encode.cpp, built with g++
+  at first use into _build/ and called through ctypes, which releases the
+  GIL, so that loader and saver threads run in parallel;
 - the mask conversions the training datasets ask of Pillow
   (convert_mask: convert('L') and convert('P'));
-- JPEG writing through Pillow, imported only when a JPEG is written
-  (require_pillow raises an ImportError that names Pillow when it is
-  missing).
+- binary PPM (P6) in memory, which tkinter's PhotoImage reads (encode_ppm).
 """
 from __future__ import annotations
 
@@ -38,19 +40,6 @@ PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _COLOR_TYPES = {0: (1, "L"), 2: (3, "RGB"), 3: (1, "P"), 4: (2, "LA"),
                 6: (4, "RGBA")}
 _LOW_BIT_TYPES = (0, 3)   # the colour types that may pack 1, 2 or 4 bits
-
-
-def require_pillow():
-    """PIL.Image, for writing JPEG files; an ImportError naming Pillow if
-    it is not installed."""
-    try:
-        from PIL import Image
-    except ImportError as e:
-        raise ImportError(
-            "writing JPEG images needs Pillow (the PIL package), which is not "
-            "installed; PNG images are read and written, and JPEG images "
-            "read, without it") from e
-    return Image
 
 
 def is_png(path: str) -> bool:
@@ -197,6 +186,21 @@ def to_rgb(pixels: np.ndarray, mode: str,
     return np.repeat(pixels[..., None], 3, axis=-1)
 
 
+def to_rgba(pixels: np.ndarray, mode: str,
+            palette: Optional[List[int]] = None) -> np.ndarray:
+    """[H, W, 4] uint8, as Image.convert('RGBA') makes it from these pixels
+    (read_any's result; a palette's transparency chunk is not read, so
+    every mode but RGBA and LA is opaque)."""
+    if mode == "RGBA":
+        return pixels
+    if mode == "LA":
+        return np.concatenate([np.repeat(pixels[..., :1], 3, axis=-1),
+                               pixels[..., 1:]], axis=-1)
+    rgb = to_rgb(pixels, mode, palette)
+    alpha = np.full(rgb.shape[:2] + (1,), 255, np.uint8)
+    return np.concatenate([rgb, alpha], axis=-1)
+
+
 # ----------------------------------------------------------------- JPEG read
 
 JPEG_SOURCE = CSRC_HOST_DIR / "jpeg_decode.cpp"
@@ -309,15 +313,15 @@ def _chunk(kind: bytes, payload: bytes) -> bytes:
 
 def write_png(path: str, pixels: np.ndarray, palette=None) -> None:
     """Write [H, W] uint8 (a palette image when `palette` is given, its
-    entries as 3 ints or bytes each, else grayscale) or [H, W, 3] uint8 RGB
-    as an 8-bit PNG, every row unfiltered."""
+    entries as 3 ints or bytes each, else grayscale), [H, W, 3] uint8 RGB or
+    [H, W, 4] uint8 RGBA as an 8-bit PNG, every row unfiltered."""
     pixels = np.asarray(pixels)
     if pixels.dtype != np.uint8:
         raise ValueError(f"write_png takes uint8 pixels, not {pixels.dtype}")
     if pixels.ndim == 2:
         color_type = 0 if palette is None else 3
-    elif pixels.ndim == 3 and pixels.shape[2] == 3 and palette is None:
-        color_type = 2
+    elif pixels.ndim == 3 and pixels.shape[2] in (3, 4) and palette is None:
+        color_type = 2 if pixels.shape[2] == 3 else 6
     else:
         raise ValueError(f"write_png: pixels of shape {pixels.shape} "
                          f"{'with' if palette is not None else 'without'} "
@@ -338,9 +342,54 @@ def write_png(path: str, pixels: np.ndarray, palette=None) -> None:
         f.write(b"".join(out))
 
 
-def write_jpeg(path: str, rgb: np.ndarray) -> None:
-    """[H, W, 3] uint8 as a JPEG, through Pillow at its default quality."""
-    require_pillow().fromarray(np.ascontiguousarray(rgb, np.uint8)).save(path)
+# ---------------------------------------------------------------- JPEG write
+
+JPEG_ENCODE_SOURCE = CSRC_HOST_DIR / "jpeg_encode.cpp"
+
+
+@functools.cache
+def jpeg_encode_library() -> ctypes.CDLL:
+    """The encoder's shared library, built as jpeg_library() is."""
+    lib = host_library(JPEG_ENCODE_SOURCE)
+    lib.jpeg_encode_bound.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.jpeg_encode_bound.restype = ctypes.c_size_t
+    lib.jpeg_encode.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                ctypes.c_int, ctypes.c_void_p, ctypes.c_size_t]
+    lib.jpeg_encode.restype = ctypes.c_long
+    return lib
+
+
+def encode_jpeg(rgb: np.ndarray, quality: int = 75) -> bytes:
+    """[H, W, 3] uint8 RGB as a baseline JFIF JPEG (YCbCr 4:2:0), the bytes
+    Pillow's save(quality=quality) and cv2.imencode('.jpg', bgr,
+    [IMWRITE_JPEG_QUALITY, quality]) write."""
+    rgb = np.ascontiguousarray(rgb)
+    if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[2] != 3 or 0 in rgb.shape:
+        raise ValueError(f"encode_jpeg takes [H, W, 3] uint8, not {rgb.dtype} "
+                         f"{rgb.shape}")
+    lib = jpeg_encode_library()
+    h, w = rgb.shape[:2]
+    out = np.empty(lib.jpeg_encode_bound(w, h), np.uint8)
+    n = lib.jpeg_encode(rgb.ctypes.data, w, h, int(quality), out.ctypes.data, out.size)
+    if n < 0:
+        raise ValueError(f"encode_jpeg: cannot encode a {w}x{h} image")
+    return out[:n].tobytes()
+
+
+def write_jpeg(path: str, rgb: np.ndarray, quality: int = 75) -> None:
+    """[H, W, 3] uint8 RGB as a JPEG file (encode_jpeg)."""
+    data = encode_jpeg(rgb, quality)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def encode_ppm(rgb: np.ndarray) -> bytes:
+    """[H, W, 3] uint8 RGB as a binary PPM (P6), which tkinter's PhotoImage
+    reads from memory."""
+    rgb = np.ascontiguousarray(rgb, np.uint8)
+    if rgb.ndim != 3 or rgb.shape[2] != 3:
+        raise ValueError(f"encode_ppm takes [H, W, 3] uint8, not {rgb.shape}")
+    return b"P6\n%d %d\n255\n" % (rgb.shape[1], rgb.shape[0]) + rgb.tobytes()
 
 
 # ------------------------------------------------------------------- resizes
@@ -412,6 +461,66 @@ def resize_nearest(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
     ys = _nearest_index(img.shape[0], out_h)
     xs = _nearest_index(img.shape[1], out_w)
     return img[ys[:, None], xs[None, :]]
+
+
+def _area_taps(in_size: int, out_size: int):
+    """cv2's computeResizeAreaTab (imgproc/src/resize.cpp) as [out, taps]
+    source indices and weights (float32 values, as cv2 stores them; zero
+    weight where an output has fewer taps)."""
+    scale = in_size / out_size
+    rows = []
+    for d in range(out_size):
+        f1 = d * scale
+        f2 = f1 + scale
+        cell = min(scale, in_size - f1)
+        s1, s2 = math.ceil(f1), math.floor(f2)
+        s2 = min(s2, in_size - 1)
+        s1 = min(s1, s2)
+        taps = []
+        if s1 - f1 > 1e-3:
+            taps.append((s1 - 1, (s1 - f1) / cell))
+        taps += [(s, 1.0 / cell) for s in range(s1, s2)]
+        if f2 - s2 > 1e-3:
+            taps.append((s2, min(min(f2 - s2, 1.0), cell) / cell))
+        rows.append(taps)
+    n = max(len(t) for t in rows)
+    idx = np.zeros((out_size, n), np.int64)
+    wts = np.zeros((out_size, n), np.float32)
+    for d, taps in enumerate(rows):
+        for j, (s, a) in enumerate(taps):
+            idx[d, j], wts[d, j] = s, a
+    return idx, wts
+
+
+def resize_area(img: np.ndarray, out_w: int, out_h: int) -> np.ndarray:
+    """cv2.resize(img, (out_w, out_h), interpolation=INTER_AREA) of a
+    downscale of uint8 [H, W] or [H, W, C]. At integer factors it takes
+    cv2's fast path bit for bit: (a + b + c + d + 2) >> 2 at 2x, else the
+    sum times the float32 reciprocal of the area, rounded half to even. At
+    other factors it sums cv2's area weights in float64 and rounds, where
+    cv2 sums them in float32 in its own order: within one level of cv2."""
+    img = np.asarray(img, np.uint8)
+    h, w = img.shape[:2]
+    if out_w > w or out_h > h:
+        raise ValueError(f"resize_area downscales: {w}x{h} -> {out_w}x{out_h}")
+    kx, ky = w / out_w, h / out_h
+    if kx == int(kx) and ky == int(ky):
+        kx, ky = int(kx), int(ky)
+        v = img.astype(np.int64)
+        acc = sum(v[i::ky, j::kx][:out_h, :out_w]
+                  for i in range(ky) for j in range(kx))
+        if kx == ky == 2:
+            return ((acc + 2) >> 2).astype(np.uint8)
+        prod = acc.astype(np.float32) * np.float32(1.0 / (kx * ky))
+        return np.clip(np.rint(prod), 0, 255).astype(np.uint8)
+    xi, xw = _area_taps(w, out_w)
+    yi, yw = _area_taps(h, out_h)
+    v = img.astype(np.float64)
+    tmp = sum(v[:, xi[:, t]] * xw[:, t].astype(np.float64).reshape(
+        (1, -1) + (1,) * (img.ndim - 2)) for t in range(xi.shape[1]))
+    out = sum(tmp[yi[:, t]] * yw[:, t].astype(np.float64).reshape(
+        (-1,) + (1,) * (img.ndim - 1)) for t in range(yi.shape[1]))
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8)
 
 
 def resize_shorter(img: np.ndarray, size: int, bilinear: bool) -> np.ndarray:

@@ -7,8 +7,8 @@ Differences: process() takes the step's probability tensor on its device,
 resizes it there and takes the argmax there, and copies only the id map
 (and, with save_scores, the uint8 scores) to the host; score dumps are
 .npz (scripts/merge_multi_scale.py reads them); PNGs are written by
-utils/image_io.py, and Pillow is needed only for the JPEG visualizations;
-RLE encoding uses utils/rle.py.
+utils/image_io.py, the JPEG visualizations by its encoder (byte-equal to
+Pillow's save); RLE encoding uses utils/rle.py.
 """
 from __future__ import annotations
 
@@ -28,8 +28,7 @@ import torch
 from cutie_tpu_torch.inference.object_manager import ObjectInfo, ObjectManager
 from cutie_tpu_torch.ops.resize import bilinear_resize
 from cutie_tpu_torch.utils import rle as rle_codec
-from cutie_tpu_torch.utils.image_io import (read_image, require_pillow,
-                                            write_jpeg, write_png)
+from cutie_tpu_torch.utils.image_io import read_image, write_jpeg, write_png
 from cutie_tpu_torch.utils.palette import ID2RGBConverter, davis_palette_np
 
 log = logging.getLogger(__name__)
@@ -53,7 +52,6 @@ class ResultSaver:
         self.visualize = visualize
 
         if self.visualize:
-            require_pillow()   # here, not first in the saver thread
             if self.palette is not None:
                 self.colors = np.array(self.palette, dtype=np.uint8).reshape(-1, 3)
             else:
@@ -210,7 +208,9 @@ def _save_one(args: ResultArgs):
         blend = (image_np * alpha + rgb_mask * (1 - alpha)).astype(np.uint8)
         this_vis_path = path.join(saver.visualize_output_root, saver.video_name)
         os.makedirs(this_vis_path, exist_ok=True)
-        write_jpeg(path.join(this_vis_path, frame_name[:-4] + ".jpg"), blend)
+        # Pillow's default quality, as cutie_tpu's Image.save writes it
+        write_jpeg(path.join(this_vis_path, frame_name[:-4] + ".jpg"), blend,
+                   quality=75)
 
 
 def make_zip(dataset, run_dir, exp_id, mask_output_root):

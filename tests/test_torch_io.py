@@ -282,10 +282,10 @@ def test_apply_overrides_match_cutie_tpu():
 
 
 def test_jpeg_needs_pillow(tmp_path, monkeypatch):
-    """Only writing JPEG needs Pillow: with Pillow missing, a JPEG still
-    reads (the port's decoder, equal to Pillow's decode), PNG reads, and a
-    visualizing ResultSaver, which writes JPEGs, raises an ImportError that
-    names Pillow."""
+    """JPEG needs no Pillow: with Pillow missing, a JPEG still reads (the
+    port's decoder, equal to Pillow's decode), PNG reads, write_jpeg writes
+    the bytes Pillow wrote, and a visualizing ResultSaver, which writes
+    JPEGs, is built."""
     from cutie_tpu_torch.inference.object_manager import ObjectManager
     from cutie_tpu_torch.utils.results import ResultSaver
 
@@ -297,8 +297,11 @@ def test_jpeg_needs_pillow(tmp_path, monkeypatch):
         monkeypatch.setitem(sys.modules, name, None)
     monkeypatch.setitem(sys.modules, "PIL", None)
     np.testing.assert_array_equal(image_io.read_image(str(tmp_path / "a.jpg")), want)
-    with pytest.raises(ImportError, match="Pillow"):
-        ResultSaver(str(tmp_path), "v", dataset="d17-val",
-                    object_manager=ObjectManager(), use_long_id=False,
-                    visualize=True)
+    image_io.write_jpeg(str(tmp_path / "b.jpg"), rgb)
+    assert (tmp_path / "b.jpg").read_bytes() == (tmp_path / "a.jpg").read_bytes()
+    saver = ResultSaver(str(tmp_path), "v", dataset="d17-val",
+                        object_manager=ObjectManager(), use_long_id=False,
+                        visualize=True)
+    assert saver.visualize
+    saver.end()
     np.testing.assert_array_equal(image_io.read_image(str(tmp_path / "a.png")), rgb)

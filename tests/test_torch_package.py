@@ -1,9 +1,11 @@
 """Rules the port's package keeps: it imports neither JAX nor cutie_tpu,
 chip_smoke.py imports neither those nor tools/, no module-level import of
-the JAX package's optional dependencies (PIL, cv2, hickle, yaml), checked in
-the source and by importing every module with them blocked, and the CUDA
-sources include no PyTorch header (a plain-C library built by nvcc in
-seconds, not torch.utils.cpp_extension)."""
+the JAX package's optional dependencies (PIL, cv2, hickle, yaml) or of the
+GUI's video and window libraries (av, PySide6), checked in the source and
+by importing every module with them blocked, the CUDA sources include no
+PyTorch header (a plain-C library built by nvcc in seconds, not
+torch.utils.cpp_extension), and the host libraries' build key covers their
+sources."""
 import ast
 import subprocess
 import sys
@@ -18,7 +20,7 @@ from tests.test_torch_stream import one_intra_op_thread  # noqa: E402,F401
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "cutie_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "cutie_tpu", "tools")
-NOT_AT_MODULE_LEVEL = ("PIL", "cv2", "hickle", "yaml")
+NOT_AT_MODULE_LEVEL = ("PIL", "cv2", "hickle", "yaml", "av", "PySide6")
 
 
 def _imports(path: Path):
@@ -45,9 +47,10 @@ def test_port_imports(path):
 
 
 def test_every_module_imports_without_optional_packages():
-    """A fresh interpreter with PIL, cv2, hickle and yaml blocked (None in
-    sys.modules, so that importing them raises) imports every module of the
-    port and chip_smoke.py: the card's machine has none of them."""
+    """A fresh interpreter with PIL, cv2, hickle, yaml, av and PySide6
+    blocked (None in sys.modules, so that importing them raises) imports
+    every module of the port and chip_smoke.py: the card's machine has none
+    of them."""
     modules = [".".join(p.relative_to(REPO).with_suffix("").parts)
                for p in PY_FILES]
     modules = [m[:-len(".__init__")] if m.endswith(".__init__") else m
@@ -74,7 +77,11 @@ def test_every_module_imports_without_optional_packages():
             "cutie_tpu_torch.data.static_dataset", "cutie_tpu_torch.data.vos_dataset",
             "cutie_tpu_torch.data.loader", "cutie_tpu_torch.data.setup_training_data",
             "cutie_tpu_torch.scripts.convert_burst_to_vos_train",
-            "cutie_tpu_torch.ritm.utils", "cutie_tpu_torch.ritm.brs"} <= set(modules)
+            "cutie_tpu_torch.ritm.utils", "cutie_tpu_torch.ritm.brs",
+            "cutie_tpu_torch.interactive_demo"} | {
+            f"cutie_tpu_torch.gui.{m}" for m in (
+                "interactive_utils", "interaction", "resource_manager", "reader",
+                "exporter", "main_controller", "tk_widgets", "widgets")} <= set(modules)
 
 
 def test_cuda_sources_are_plain_c():
@@ -118,3 +125,23 @@ def test_build_key_covers_every_csrc_file(tmp_path, monkeypatch):
     header.write_text(header.read_text() + "\n// edited\n")
     after = {s: cuda_build.library_path(s).name for s in sources}
     assert all(before[s] != after[s] for s in sources), (before, after)
+
+
+def test_host_build_key_covers_each_source(tmp_path, monkeypatch):
+    """Each host C++ source (the JPEG decoder and encoder, the dist maps)
+    builds into a library named by its own text: an edit renames it."""
+    import shutil
+
+    from cutie_tpu_torch.utils import host_build
+
+    names = ("jpeg_decode.cpp", "jpeg_encode.cpp", "dist_maps.cpp")
+    for name in names:
+        shutil.copy(PORT / "csrc_host" / name, tmp_path / name)
+    before = {n: host_build.library_path(tmp_path / n).name for n in names}
+    assert len(set(before.values())) == len(names)
+    src = tmp_path / "jpeg_encode.cpp"
+    src.write_text(src.read_text() + "\n// edited\n")
+    after = {n: host_build.library_path(tmp_path / n).name for n in names}
+    assert after["jpeg_encode.cpp"] != before["jpeg_encode.cpp"]
+    assert {n: after[n] for n in names if n != "jpeg_encode.cpp"} == \
+        {n: before[n] for n in names if n != "jpeg_encode.cpp"}
