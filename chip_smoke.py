@@ -113,6 +113,21 @@ Phases, each printing one JSON line with its wall seconds:
              save queue's drain; (c) the JPEG encoder (g++ here) byte for
              byte against the committed Pillow and cv2 references in
              tests/torch_fixtures/jpeg_enc/, ms to encode 480x854 at q95;
+  multi      the multi-device layer (cutie_tpu_torch/parallel/), ranks
+             spawned with a file:// rendezvous at world 1 on NCCL and at
+             world 2 on gloo with both ranks on cuda:0 (NCCL takes one rank
+             a card; world 2 is a one-card number): (a) the sharded read on
+             the lt_stream phase's read inputs (fp32 and bf16 values) and
+             the kernel phase's lvos600 case against kernel #1 on the same
+             inputs, ms a read beside kernel #1's; (b) the long-term golden
+             stream, at world 1 through kernel #1 (its launches are the
+             phase's) and at world 2 with mem_mesh_devices = 2 (half the
+             long-term slots a rank), against the golden and the lt_stream
+             phase's id maps; (c) main training at full width (T=8,
+             480x480, amp, remat, global batch 2, 3 steps), the parameters
+             bit-equal across the ranks after every step, ms a step, and at
+             world 2 the fp32 gradient against one process on the global
+             batch (TRAIN_GRAD_RTOL);
   kernels    one line listing every ported kernel.
 The last line is {"ok": true, "device": {...}}. Any failure raises and the
 script exits non-zero. It needs a CUDA device and the repository around it.
@@ -146,6 +161,9 @@ from cutie_tpu_torch.ops.memory import (_float_order_key, get_similarity,
                                         softmax_affinity, topk_threshold)
 from cutie_tpu_torch.models.layers import FrozenBatchNorm
 from cutie_tpu_torch.ops.resize import bilinear_resize
+from cutie_tpu_torch.parallel import (make_mesh, shard_batch, shard_memory,
+                                      sharded_composite_readout)
+from cutie_tpu_torch.parallel.launch import spawn_ranks
 from cutie_tpu_torch.ritm import dist_maps
 from cutie_tpu_torch.ritm.deeplab import DeepLabISModel
 from cutie_tpu_torch.ritm.utils import ClickController, load_is_model
@@ -756,7 +774,8 @@ def phase_lt_stream(k=30):
     if not ok:
         raise RuntimeError("lt_stream phase failed")
     return dict(launches=launches, max_abs=res["readout_max_abs"], case=case,
-                fps=fps_steady(frame_ms), id_maps=id_maps, **times)
+                fps=fps_steady(frame_ms), id_maps=id_maps,
+                consolidations=core.consolidations, **times)
 
 
 def variant_result(name, rec, run, t0, ok, size=(480, 854), **extra):
@@ -2047,6 +2066,286 @@ def phase_gui(stream):
     return launches
 
 
+# ------------------------------------------------------------------ multi
+
+# the sharded read against kernel #1 on the same inputs: fp32 values, and
+# bf16 values (read as bf16 by both, contracted in fp32)
+MULTI_READ_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+MULTI_READ_ITERS = 10
+MULTI_TRAIN_STEPS = 3
+
+
+def composite_sections(case):
+    """A read case's three segments (perm | lt | work) as
+    sharded_composite_readout's sections (batch row 0) and its queries."""
+    bounds = np.cumsum([0] + [v.shape[1] for v in case["values"]])
+    secs = [(case["mk"][None, a:b], case["ms"][None, a:b], v[None],
+             case["valid"][None, a:b])
+            for a, b, v in zip(bounds[:-1], bounds[1:], case["values"])]
+    return secs, case["qk"][None], case["qe"][None]
+
+
+def sharded_case_read(case, mesh, k):
+    """The sharded read of a read case on this rank, the long-term segment
+    sliced across the mesh (its capacity divides by it): readout [O, P, Cv],
+    this rank's long-term usage, the whole working-memory usage."""
+    secs, qk, qe = composite_sections(case)
+    secs[1] = shard_memory(mesh, *secs[1])
+    rd, lt_us, work_us = sharded_composite_readout(*secs, qk, qe, k, mesh,
+                                                   lt_sharded=True, return_usage=True)
+    return rd[0], lt_us[0], work_us[0]
+
+
+def multi_reads(cases, mesh, k):
+    """Each case's sharded read on this rank, and its ms (host clock over
+    MULTI_READ_ITERS synchronised reads, after two)."""
+    out = {}
+    for name, case in cases.items():
+        rd, lt_us, work_us = sharded_case_read(case, mesh, k)
+        for _ in range(2):
+            sharded_case_read(case, mesh, k)
+        torch.cuda.synchronize()
+        torch.distributed.barrier()
+        t1 = time.perf_counter()
+        for _ in range(MULTI_READ_ITERS):
+            sharded_case_read(case, mesh, k)
+        torch.cuda.synchronize()
+        out[name] = {"readout": rd.cpu(), "lt_usage": lt_us.cpu(),
+                     "work_usage": work_us.cpu(),
+                     "ms": 1e3 * (time.perf_counter() - t1) / MULTI_READ_ITERS}
+    return out
+
+
+def multi_stream(d, k):
+    """The long-term golden stream with mem_mesh_devices = d on this rank
+    (d = 1: no mesh, the read through kernel #1)."""
+    core = base_core(top_k=k, mem_mesh_devices=d, **LT_SETTINGS)
+    _, frames, mask0 = golden_video("stream480_lt_trained.npz")
+    id_maps, frame_ms, launches, _ = run_stream(core, frames, first_mask_step(mask0),
+                                                (480, 854))
+    return {"id_maps": np.stack(id_maps), "frame_ms": frame_ms, "launches": launches,
+            "consolidations": core.consolidations, "lt_count": core.state.lt_count,
+            "lt_slots": int(core.state.lt_key.shape[1]), "lt_capacity": core.lt_capacity}
+
+
+def params_digest(model):
+    h = hashlib.sha256()
+    for p in model.parameters():
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def multi_train(mesh, dev):
+    """Main training at full width (T=8, 480x480, 3 objects, amp, remat)
+    from the trained weights, global batch 2, this rank's rows: each step's
+    losses, ms and parameter digest."""
+    cfg, stage = main_training_cfg(amp=True)
+    model = build_model(cfg, device=dev, state_dict=trained_weights())
+    trainer = Trainer(cfg, stage, model, mesh=mesh)
+    data = {key: v.to(dev) for key, v in
+            shard_batch(train_batch(8, 480, 3, stage.batch_size, "cpu"), mesh).items()}
+    losses, ms, digests = [], [], []
+    for it in range(MULTI_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = trainer.do_pass(data, it, train_entry.step_generator(1, it))
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t1))
+        losses.append(float(out["total_loss"]))
+        digests.append(params_digest(model))
+    return {"losses": losses, "ms_per_step": ms, "digests": digests,
+            "rows": int(data["frames"].shape[0])}
+
+
+def multi_grads(mesh, dev):
+    """The fp32 gradient of a fixed random linear functional of
+    train_forward's outputs (the mean over the global batch's rows; card
+    against CPU's shapes: T=3, 192x192, 2 objects, nothing random on the
+    path) averaged across the mesh by the Trainer, and on rank 0 the same
+    gradient of one process on the global batch: each parameter's relative
+    error, as card_against_cpu measures it."""
+    cfg, stage = main_training_cfg(amp=False)
+    stage.merge({"seq_length": 3, "num_ref_frames": 2, "deep_update_prob": 0.0,
+                 "remat": False, "amp": False})
+    data = train_batch(3, 192, 2, 2, "cpu")
+    rng = np.random.default_rng(0)
+    model = build_model(cfg, device=dev, state_dict=trained_weights())
+    with torch.no_grad():
+        shapes = {k: v.shape for k, v in train_forward(
+            model, {k: v.to(dev) for k, v in data.items()}, torch.Generator(),
+            stage).items()}
+    weights = {k: torch.from_numpy(rng.normal(size=shapes[k]).astype(np.float32)) / 2
+               for k in TRAIN_OUT_KEYS}
+    trainer = Trainer(cfg, stage, model, mesh=mesh)
+    local = {k: v.to(dev) for k, v in shard_batch(data, mesh).items()}
+    w_local = {k: v * mesh.size for k, v in shard_batch(weights, mesh).items()}
+    b = local["frames"].shape[0]
+    model.zero_grad(set_to_none=False)
+    out = train_forward(model, local, torch.Generator().manual_seed(0), stage,
+                        rows=(mesh.rank * b, mesh.size * b))
+    sum((out[k] * w_local[k].to(dev)).sum() for k in TRAIN_OUT_KEYS).backward()
+    trainer.average_gradients()
+    if mesh.rank != 0:
+        return None
+    g_mesh = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+    one = build_model(cfg, device=dev, state_dict=trained_weights())
+    _, g_one = grads_of_train_forward(one, {k: v.to(dev) for k, v in data.items()},
+                                      stage, weights)
+    floor = 1e-6 * max(float(v.norm()) for v in g_one.values())
+    err = {n: float((g_mesh[n] - g_one[n]).norm()) / max(float(g_one[n].norm()), floor)
+           for n in g_one}
+    worst = sorted(err.items(), key=lambda kv: -kv[1])[:3]
+    return {"grad_rel_err_max": worst[0][1], "grad_rel_err_worst": worst,
+            "grad_rel_err_median": float(np.median(list(err.values())))}
+
+
+def multi_rank(inputs_path, k):
+    """One rank of the multi phase (a spawned process on cuda:0)."""
+    mesh = make_mesh()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cases = {name: {key: (tuple(v.to(dev) for v in val) if key == "values"
+                          else val.to(dev)) for key, val in case.items()}
+             for name, case in torch.load(inputs_path, weights_only=True).items()}
+    res = {"world": mesh.size, "rank": mesh.rank, "reads": multi_reads(cases, mesh, k)}
+    del cases
+    res["stream"] = multi_stream(mesh.size, k)
+    res["train"] = multi_train(mesh, dev)
+    if mesh.size > 1:
+        res["grads"] = multi_grads(mesh, dev)
+    return res
+
+
+def within(a, b, tol):
+    """|a - b| <= tol + tol |b| elementwise (numpy.allclose's rule)."""
+    return bool(np.allclose(np.asarray(a, np.float64), np.asarray(b, np.float64),
+                            rtol=tol, atol=tol))
+
+
+def multi_read_checks(res_by_world, cases, k):
+    """Each world's sharded reads against kernel #1 on the same inputs."""
+    out, ok = {}, True
+    for name, case in cases.items():
+        args = {key: case[key] for key in ARGS}
+        rd_k, us_k, _ = read_kernel.radix_topk_readout_cuda(**args, top_k=k)
+        rd_k, us_k = rd_k.cpu().numpy(), us_k.cpu().numpy()
+        caps = [v.shape[1] for v in case["values"]]
+        tol = MULTI_READ_TOL[str(case["values"][0].dtype).split(".")[-1]]
+        kernel_ms = cuda_time_ms(lambda: read_kernel.radix_topk_readout(**args, top_k=k))
+        entry = {"tokens": int(case["mk"].shape[0]), "segment_tokens": caps,
+                 "queries": int(case["qk"].shape[0]), "tol": tol,
+                 "kernel1_ms": kernel_ms}
+        for world, ranks_res in res_by_world.items():
+            reads = [r["reads"][name] for r in ranks_res]
+            rd = reads[0]["readout"].numpy()
+            lt_us = np.concatenate([r["lt_usage"].numpy() for r in reads])
+            work_us = reads[0]["work_usage"].numpy()
+            lt_k = us_k[caps[0]:caps[0] + caps[1]]
+            work_k = us_k[caps[0] + caps[1]:]
+            same = all(np.array_equal(r["readout"].numpy(), rd) for r in reads)
+            w_ok = (same and within(rd, rd_k, tol) and within(lt_us, lt_k, tol)
+                    and within(work_us, work_k, tol))
+            entry[f"world{world}"] = {
+                "ms": reads[0]["ms"], "readout_max_abs_err": float(np.abs(rd - rd_k).max()),
+                "readout_rel": float(np.abs(rd - rd_k).max() / np.abs(rd_k).max()),
+                "lt_usage_max_abs_err": float(np.abs(lt_us - lt_k).max()),
+                "work_usage_max_abs_err": float(np.abs(work_us - work_k).max()),
+                "ranks_read_the_same": same, "ok": w_ok}
+            ok &= w_ok
+        out[name] = entry
+    return out, ok
+
+
+def multi_inputs(lt_case, lvos600):
+    """The multi phase's read cases, on the card: the lt_stream phase's
+    read inputs with fp32 and with bf16 values, and the kernel phase's
+    lvos600 case."""
+    def values_as(case, dtype):
+        return dict(case, values=tuple(v.to(dtype) for v in case["values"]))
+
+    return {"lt_stream": lt_case, "lt_stream_bf16": values_as(lt_case, torch.bfloat16),
+            "lvos600": lvos600}
+
+
+def phase_multi(lres, lvos600, smi, k=30):
+    """The multi-device layer (cutie_tpu_torch/parallel/) on the card: ranks
+    spawned with a file:// rendezvous, at world 1 on NCCL and at world 2 on
+    gloo with both ranks on cuda:0 (NCCL takes one rank a card): (a) the
+    sharded read against kernel #1 on the same inputs; (b) the long-term
+    golden stream (world 1: through kernel #1, its launches counted; world 2:
+    mem_mesh_devices = 2) against the golden and the lt_stream phase;
+    (c) main training at full width, the parameters bit-equal across the
+    ranks after every step, and at world 2 the fp32 gradient against one
+    process on the global batch."""
+    t0 = time.perf_counter()
+    cases = {name: {key: case[key] for key in ARGS}
+             for name, case in multi_inputs(lres["case"], lvos600).items()}
+    res_by_world = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = os.path.join(tmp, "inputs.pt")
+        torch.save({name: {key: (tuple(v.cpu() for v in val) if key == "values"
+                                 else val.cpu()) for key, val in case.items()}
+                    for name, case in cases.items()}, inputs)
+        for world, backend in ((1, "nccl"), (2, "gloo")):
+            res_by_world[world] = spawn_ranks(multi_rank, world, device="cuda:0",
+                                              backend=backend, args=(inputs, k),
+                                              timeout=600)
+    reads, reads_ok = multi_read_checks(res_by_world, cases, k)
+
+    rec = np.load(GOLDEN / "stream480_lt_trained.npz")
+    streams, streams_ok = {}, True
+    for world, ranks_res in res_by_world.items():
+        runs = [r["stream"] for r in ranks_res]
+        maps = runs[0]["id_maps"]
+        ious = stream_ious(maps, rec["masks"])
+        vs_lt = stream_ious(maps, lres["id_maps"])
+        entry = {"consolidations": runs[0]["consolidations"],
+                 "lt_count": runs[0]["lt_count"], "lt_capacity": runs[0]["lt_capacity"],
+                 "lt_slots_by_rank": [r["lt_slots"] for r in runs],
+                 "kernel1_launches": [r["launches"]["radix_topk_readout"] for r in runs],
+                 "iou_median": float(np.median(ious)), "iou_min": float(ious.min()),
+                 "iou_vs_lt_stream_median": float(np.median(vs_lt)),
+                 "iou_vs_lt_stream_min": float(vs_lt.min()),
+                 "pixel_agreement_vs_lt_stream": float((maps == np.stack(lres["id_maps"])).mean()),
+                 "ranks_agree": all(np.array_equal(r["id_maps"], maps) for r in runs),
+                 "fps_frames_3_to_26": fps_steady(runs[0]["frame_ms"])}
+        entry["ok"] = (iou_ok(ious) and iou_ok(vs_lt) and entry["ranks_agree"]
+                       and entry["consolidations"] == lres["consolidations"] >= 1
+                       and all(n == entry["lt_capacity"] // world
+                               for n in entry["lt_slots_by_rank"])
+                       and (world > 1 or entry["kernel1_launches"][0] > 0))
+        streams[f"world{world}"] = entry
+        streams_ok &= entry["ok"]
+
+    train, train_ok = {}, True
+    for world, ranks_res in res_by_world.items():
+        runs = [r["train"] for r in ranks_res]
+        entry = {"rows_per_rank": runs[0]["rows"], "total_loss": runs[0]["losses"],
+                 "ms_per_step": runs[0]["ms_per_step"],
+                 "step_ms_after_first": float(np.mean(runs[0]["ms_per_step"][1:])),
+                 "params_bit_equal_every_step": all(r["digests"] == runs[0]["digests"]
+                                                    for r in runs),
+                 "params_moved": len(set(runs[0]["digests"])) == MULTI_TRAIN_STEPS,
+                 "finite": all(np.isfinite(r["losses"]).all() for r in runs)}
+        ok = entry["params_bit_equal_every_step"] and entry["params_moved"] and entry["finite"]
+        if world > 1:
+            entry["fp32_grads_vs_one_process"] = ranks_res[0]["grads"]
+            ok = ok and ranks_res[0]["grads"]["grad_rel_err_max"] <= TRAIN_GRAD_RTOL
+        entry["ok"] = ok
+        train[f"world{world}"] = entry
+        train_ok &= ok
+
+    launches = res_by_world[1][0]["stream"]["launches"]
+    ok = reads_ok and streams_ok and train_ok
+    emit({"phase": "multi", "card": smi,
+          "worlds": {"1": "NCCL, one rank on cuda:0",
+                     "2": "gloo, two ranks on cuda:0 (one card, gloo)"},
+          "reads": reads, "streams": streams, "train": train,
+          "launches": launches, "ok": ok, "seconds": time.perf_counter() - t0})
+    if not ok:
+        raise RuntimeError("multi phase failed")
+    return launches
+
+
 def phase_kernel(lt_case, k=30):
     t0 = time.perf_counter()
     rng = np.random.default_rng(0)
@@ -2204,6 +2503,7 @@ def main():
     by_path["gui"] = phase_gui(sres)
     kres = phase_kernel(lres["case"])
     fres = phase_fused(sres["case"], kres["cases"]["lvos600"])
+    by_path["multi"] = phase_multi(lres, kres["cases"]["lvos600"], smi)
     t0 = time.perf_counter()
     emit({"kernels": [{
         "name": "radix_topk_readout", "route": "cuda",

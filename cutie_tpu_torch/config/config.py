@@ -252,13 +252,18 @@ def eval_config(model: str = "base") -> Config:
         "save_aux": False,
         "visualize": False,
         # carried so that cutie_tpu's configs load; the port reads none of
-        # max_objects, matmul_precision and read_backend (it always reads
-        # memory through ops.read_kernel.radix_topk_readout)
+        # max_objects, matmul_precision and read_backend (it reads memory
+        # through ops.read_kernel.radix_topk_readout, or the sharded read
+        # under mem_mesh_devices)
         "max_objects": -1,
         "perm_frame_capacity": 1,
         "compute_dtype": "float32",
         "matmul_precision": None,
         "read_backend": "auto",
+        # ranks of the memory mesh (parallel/sharded_memory.py): 0 and 1 read
+        # on one device; more than the torch.distributed world raises.
+        # cutie_tpu reads it with cfg.get(..., 0) and has no entry.
+        "mem_mesh_devices": 0,
         "datasets": {k: dict(v) for k, v in _DATASETS.items()},
     })
 

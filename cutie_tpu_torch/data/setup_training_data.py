@@ -11,22 +11,14 @@ from __future__ import annotations
 import json
 import logging
 from os import path
-from typing import Dict, Tuple
-
-import torch
+from typing import Dict
 
 from cutie_tpu_torch.data.loader import ShardedLoader
 from cutie_tpu_torch.data.static_dataset import SyntheticVideoDataset
 from cutie_tpu_torch.data.vos_dataset import VOSMergeTrainDataset
+from cutie_tpu_torch.parallel.mesh import process_rank
 
 log = logging.getLogger(__name__)
-
-
-def process_rank() -> Tuple[int, int]:
-    """(rank, world size) of torch.distributed, or (0, 1) without it."""
-    if torch.distributed.is_available() and torch.distributed.is_initialized():
-        return torch.distributed.get_rank(), torch.distributed.get_world_size()
-    return 0, 1
 
 
 def load_subset(p: str):

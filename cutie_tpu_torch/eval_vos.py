@@ -4,10 +4,16 @@ cutie_tpu/eval_vos.py; reference cutie/eval_vos.py:23-176).
     python -m cutie_tpu_torch.eval_vos dataset=d17-val weights=cutie-base-mega.pth \
         image_directory=... mask_directory=... size=480 [device=cpu]
 
+    torchrun --nproc_per_node=N -m cutie_tpu_torch.eval_vos ... [device=cpu]
+
 It runs on the card; `device=cpu` (or eval_vos(cfg, device="cpu")) asks
 for the CPU. Each frame's step is timed alone, between
 torch.cuda.synchronize() calls; FPS and the peak device memory are logged
-at the end. Under torch.distributed, videos are strided by rank.
+at the end. Under torchrun each rank joins the process group (NCCL on the
+cards, rank r on card LOCAL_RANK; gloo on the CPU; dist_init=<url> where
+MASTER_ADDR is not set) and the videos are strided by rank; with
+mem_mesh_devices = D > 1, by group of D ranks, which read each video's
+memory together, the group's first rank saving it.
 """
 from __future__ import annotations
 
@@ -26,6 +32,8 @@ from cutie_tpu_torch.data.burst import BURSTResultHandler, BURSTTestDataset
 from cutie_tpu_torch.data.prefetch import prefetch_iter
 from cutie_tpu_torch.data.video_reader import VOSTestDataset
 from cutie_tpu_torch.inference import InferenceCore
+from cutie_tpu_torch.parallel.launch import join_launch, pop_launch_args
+from cutie_tpu_torch.parallel.mesh import process_rank
 from cutie_tpu_torch.utils.get_default_model import build_model
 from cutie_tpu_torch.utils.results import ResultSaver, make_zip
 
@@ -77,12 +85,14 @@ def eval_vos(cfg, device: str = "cuda") -> dict:
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
 
-    # videos are independent: each process takes every rank-th one
-    distributed = dist.is_available() and dist.is_initialized()
-    rank, world = (dist.get_rank(), dist.get_world_size()) if distributed else (0, 1)
+    # videos are independent: each group of mem_mesh_devices ranks (one
+    # rank without a memory mesh) takes every group-th one
+    rank, world = process_rank()
+    mesh_ranks = max(int(cfg.get("mem_mesh_devices", 0) or 0), 1)
+    saves = rank % mesh_ranks == 0
 
-    for vid_reader in meta_dataset.get_datasets(process_index=rank,
-                                                 process_count=world):
+    for vid_reader in meta_dataset.get_datasets(process_index=rank // mesh_ranks,
+                                                 process_count=world // mesh_ranks):
         vid_name = vid_reader.vid_name
         vid_length = len(vid_reader)
         log.info("Processing %s (%d frames)", vid_name, vid_length)
@@ -132,14 +142,14 @@ def eval_vos(cfg, device: str = "cuda") -> dict:
                 if skip:
                     continue
 
-                if save_all or info["save"]:
+                if saves and (save_all or info["save"]):
                     saver.process(prob, info["frame"],
                                   resize_needed=info["resize_needed"],
                                   shape=info["shape"],
                                   last_frame=(ti == vid_length - 1),
                                   path_to_image=info["path_to_image"])
             saver.end()
-            if is_burst:
+            if is_burst and saves:
                 burst_handler.add_sequence(saver.video_json)
         except Exception as e:
             log.error("Runtime error at %s: %s", vid_name, e)
@@ -158,7 +168,7 @@ def eval_vos(cfg, device: str = "cuda") -> dict:
         # every rank has written its masks before rank 0 zips; each BURST
         # handler holds its own videos, so each writes its own file
         dist.barrier()
-        if is_burst:
+        if is_burst and saves:
             burst_handler.dump(run_dir, suffix=f"_rank{rank}")
         if rank == 0:
             make_zip(dataset_name, run_dir, cfg.exp_id, mask_output_root)
@@ -172,16 +182,18 @@ def eval_vos(cfg, device: str = "cuda") -> dict:
 def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     argv = list(sys.argv[1:] if argv is None else argv)
-    device = "cuda"
-    for arg in [a for a in argv if a.startswith("device=")]:
-        device = arg.partition("=")[2]
-        argv.remove(arg)
+    device, dist_init = pop_launch_args(argv)
     cfg = eval_config("base")
     cfg.apply_overrides(argv)
     # model=small / model=base selects the preset
     if isinstance(cfg.get("model"), str):
         cfg.model = model_small() if cfg.model == "small" else model_base()
-    return eval_vos(cfg, device)
+    device, joined = join_launch(device, dist_init)
+    try:
+        return eval_vos(cfg, device)
+    finally:
+        if joined:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -77,7 +77,8 @@ class InferenceCore:
             # one slack slot: consolidation runs once the ring holds
             # max_mem_frames frames, so the ring never overwrites a frame
             self.ring_frames = self.max_mem_frames + 1
-            self.lt_capacity = self.max_long_tokens + self.num_prototypes
+            self.lt_capacity = self._round_lt_cap(self.max_long_tokens
+                                                  + self.num_prototypes)
         else:
             self.max_mem_frames = cfg.max_mem_frames - 1
             self.ring_frames = max(self.max_mem_frames, 1)
@@ -144,11 +145,12 @@ class InferenceCore:
             self.max_long_tokens = lt["max_num_tokens"]
             self.buffer_tokens = lt["buffer_tokens"]
             new_ring = self.max_mem_frames + 1
-            new_lt_cap = self.max_long_tokens + self.num_prototypes
+            new_lt_cap = self._round_lt_cap(self.max_long_tokens + self.num_prototypes)
             if new_lt_cap != self.lt_capacity:
                 self.lt_capacity = new_lt_cap
                 if st is not None:
-                    self.state = st = resize_lt_capacity(st, new_lt_cap)
+                    self.state = st = resize_lt_capacity(
+                        self.steps.gather_lt(st), new_lt_cap, self.steps.lt_shard())
             # on a ring shrink, consolidate with the old ring intact until
             # the surviving frames fit: the reference consolidates before it
             # trims (memory_manager.py:282-296), where resizing first would
@@ -175,6 +177,16 @@ class InferenceCore:
             self._maybe_consolidate()
 
     # -------------------------------------------------------------- internals
+
+    def _round_lt_cap(self, cap: int) -> int:
+        """The long-term allocation rounded up to a multiple of the memory
+        mesh, so that the token axis divides across its ranks (cutie_tpu
+        inference_core.py:208-215): capacity only, max_num_tokens still
+        decides when eviction runs, and the extra slots stay invalid."""
+        if self.steps.mem_mesh is None:
+            return cap
+        d = self.steps.mem_mesh.size
+        return -(-cap // d) * d
 
     def _selector(self) -> torch.Tensor:
         sel = torch.zeros(self.state.num_objects, device=self.device)
@@ -210,7 +222,8 @@ class InferenceCore:
                 embed_dim=mc.object_transformer.embed_dim,
                 perm_frames=max(self.cfg.get("perm_frame_capacity", 1), 1),
                 work_frames=self.ring_frames, lt_capacity=self.lt_capacity,
-                value_dtype=self.network.compute_dtype, device=self.device)
+                value_dtype=self.network.compute_dtype, device=self.device,
+                lt_shard=self.steps.lt_shard())
         elif self.state.num_objects < cap:
             self.state = pad_objects(self.state, cap)
 

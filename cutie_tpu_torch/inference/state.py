@@ -17,10 +17,17 @@ Objects are a padded axis O; per-object validity masks [O, tokens] replace
 the reference's buckets. The counters are host integers (PyTorch runs
 eagerly, so there is nothing to trace). Outside long-term mode the
 long-term buffers hold L = 0 tokens.
+
+Under a memory mesh of D ranks (parallel/sharded_memory.py) each rank's
+long-term buffers hold its slice of the token axis: L / D slots, rank r's
+starting at global slot r * L / D (lt_shard = (r, D)). lt_count stays the
+global count, so a slice's validity compares global slot indices
+(lt_valid(offset)).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 import torch
 
@@ -62,9 +69,10 @@ class MemoryState:
         rel = (torch.arange(f, device=self.work_key.device) - self.work_start) % f
         return rel < self.work_count
 
-    def lt_valid(self) -> torch.Tensor:
-        """[L] bool: which long-term slots hold live tokens."""
-        return torch.arange(self.lt_key.shape[1],
+    def lt_valid(self, offset: int = 0) -> torch.Tensor:
+        """[L] bool: which long-term slots hold live tokens; the buffers
+        hold the slots from global slot `offset` on (a rank's slice)."""
+        return torch.arange(offset, offset + self.lt_key.shape[1],
                             device=self.lt_key.device) < self.lt_count
 
 
@@ -72,11 +80,14 @@ def init_state(*, batch: int, max_objects: int, h: int, w: int,
                sensory_dim: int, key_dim: int, value_dim: int,
                num_queries: int, embed_dim: int, perm_frames: int,
                work_frames: int, lt_capacity: int = 0,
-               value_dtype: torch.dtype = torch.float32, device) -> MemoryState:
+               value_dtype: torch.dtype = torch.float32, device,
+               lt_shard: Tuple[int, int] = (0, 1)) -> MemoryState:
     """An empty state; h, w are the stride-16 dims (HW = h*w tokens/frame),
-    lt_capacity the long-term tokens (0 outside long-term mode). The value
+    lt_capacity the long-term tokens (0 outside long-term mode), of which
+    the long-term buffers hold the slice of lt_shard = (rank, D). The value
     stores hold value_dtype: bf16 under amp, where the mask encoder emits
     bf16 values and the read takes them as they are."""
+    lt_capacity = _shard_size(lt_capacity, lt_shard)
     hw = h * w
     pcap = perm_frames * hw
     B, O = batch, max_objects
@@ -106,6 +117,29 @@ def init_state(*, batch: int, max_objects: int, h: int, w: int,
         lt_life=z(B, lt_capacity),
         last_mask=z(B, O, h * 16, w * 16),
     )
+
+
+def _shard_size(cap: int, lt_shard: Tuple[int, int]) -> int:
+    if cap % lt_shard[1]:
+        raise ValueError(f"long-term capacity {cap} does not divide across "
+                         f"{lt_shard[1]} ranks")
+    return cap // lt_shard[1]
+
+
+LT_FIELDS = (("lt_key", 1), ("lt_shrink", 1), ("lt_value", 2),
+             ("lt_obj_valid", 1), ("lt_use", 1), ("lt_life", 1))
+
+
+def slice_lt(state: MemoryState, lt_shard: Tuple[int, int]) -> MemoryState:
+    """The state with only lt_shard = (rank, D)'s slice of whole long-term
+    buffers."""
+    rank, d = lt_shard
+    if d == 1:
+        return state
+    c = _shard_size(state.lt_key.shape[1], lt_shard)
+    return dataclasses.replace(state, **{
+        name: getattr(state, name).narrow(dim, rank * c, c).clone()
+        for name, dim in LT_FIELDS})
 
 
 def _grow(x: torch.Tensor, dim: int, size: int) -> torch.Tensor:
@@ -166,20 +200,22 @@ def resize_work_ring(state: MemoryState, new_frames: int) -> MemoryState:
         work_start=0, work_count=keep)
 
 
-def resize_lt_capacity(state: MemoryState, new_cap: int) -> MemoryState:
+def resize_lt_capacity(state: MemoryState, new_cap: int,
+                       lt_shard: Tuple[int, int] = (0, 1)) -> MemoryState:
     """The long-term buffers reallocated to new_cap tokens (cutie_tpu
     state.py:resize_lt_capacity): a grow appends invalid slots, a shrink
-    keeps the first new_cap tokens."""
+    keeps the first new_cap tokens. The state's buffers are whole; with
+    lt_shard = (rank, D) the result keeps that rank's slice."""
     cap = state.lt_key.shape[1]
     if new_cap == cap:
-        return state
+        return slice_lt(state, lt_shard)
 
     def resize(x, dim):
         if new_cap < cap:
             return x.narrow(dim, 0, new_cap).clone()
         return _grow(x, dim, new_cap)
 
-    return dataclasses.replace(
+    return slice_lt(dataclasses.replace(
         state,
         lt_key=resize(state.lt_key, 1),
         lt_shrink=resize(state.lt_shrink, 1),
@@ -187,7 +223,7 @@ def resize_lt_capacity(state: MemoryState, new_cap: int) -> MemoryState:
         lt_obj_valid=resize(state.lt_obj_valid, 1),
         lt_use=resize(state.lt_use, 1),
         lt_life=resize(state.lt_life, 1).clamp_(min=1e-7),
-        lt_count=min(state.lt_count, new_cap))
+        lt_count=min(state.lt_count, new_cap)), lt_shard)
 
 
 def grow_perm(state: MemoryState, new_perm_tokens: int) -> MemoryState:

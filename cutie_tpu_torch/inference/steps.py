@@ -11,20 +11,29 @@ the working-memory ring slots (index assignment), and consolidate writes the
 long-term buffers and advances the ring.
 
 The memory read goes through ops.read_kernel.radix_topk_readout: the CUDA
-kernel for tensors on the card, its plain version on the CPU.
+kernel for tensors on the card, its plain version on the CPU. With
+cfg.mem_mesh_devices = D > 1 the read is sharded over a mesh of D ranks
+instead (parallel/sharded_memory.py; cutie_tpu steps.py:437-503): every
+rank runs the same steps on the same frames, the permanent and working
+memory are replicated, and in long-term mode each rank's long-term buffers
+hold its slice of the token axis.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from cutie_tpu_torch.inference.state import MemoryState
+from cutie_tpu_torch.inference.state import LT_FIELDS, MemoryState, slice_lt
 from cutie_tpu_torch.models.cutie import CUTIE
 from cutie_tpu_torch.ops.memory import (NEG_INF, get_similarity, readout,
                                         softmax_affinity)
 from cutie_tpu_torch.ops.read_kernel import radix_topk_readout
+from cutie_tpu_torch.parallel.mesh import all_gather
+from cutie_tpu_torch.parallel.sharded_memory import (make_mem_mesh,
+                                                     sharded_composite_readout)
 
 
 class FrameFeatures(NamedTuple):
@@ -63,6 +72,33 @@ class StepFunctions:
         self.use_long_term = bool(cfg.get("use_long_term", False))
         if self.use_long_term:
             self.num_prototypes = int(cfg.long_term.num_prototypes)
+        # the memory mesh (0 and 1: none); more ranks than the world has
+        # raise (parallel/mesh.py:make_mesh)
+        d = int(cfg.get("mem_mesh_devices", 0) or 0)
+        self.mem_mesh = make_mem_mesh(d) if d > 1 else None
+
+    def lt_sharded(self) -> bool:
+        """True when each rank holds a slice of the long-term buffers."""
+        return self.mem_mesh is not None and self.use_long_term
+
+    def lt_shard(self) -> Tuple[int, int]:
+        """(rank, D) of the long-term slice this rank holds; (0, 1): all."""
+        if self.lt_sharded():
+            return self.mem_mesh.rank, self.mem_mesh.size
+        return 0, 1
+
+    def lt_offset(self, state: MemoryState) -> int:
+        """The global slot of this rank's first long-term slot."""
+        return self.lt_shard()[0] * state.lt_key.shape[1]
+
+    def gather_lt(self, state: MemoryState) -> MemoryState:
+        """The state with whole long-term buffers, gathered from every
+        rank's slice (the state itself when they are not sharded)."""
+        if not self.lt_sharded():
+            return state
+        return dataclasses.replace(state, **{
+            name: torch.cat(all_gather(getattr(state, name), self.mem_mesh), dim=dim)
+            for name, dim in LT_FIELDS})
 
     @torch.no_grad()
     def encode(self, image: torch.Tensor, *, pad=(0, 0, 0, 0)) -> FrameFeatures:
@@ -123,21 +159,54 @@ class StepFunctions:
         o, cv = state.num_objects, state.work_value.shape[-1]
         f = state.work_key.shape[1]
         pcap, lcap = state.perm_key.shape[1], state.lt_key.shape[1]
+        lt_valid = state.lt_valid(self.lt_offset(state))
         pixel_readout = torch.zeros((b, o, hw, cv), device=feats.key.device)
         for bi, rep in enumerate(bucket_rep):
-            reads = [radix_topk_readout(*self.read_inputs(state, feats, rep, r),
-                                        self.top_k) for r in range(b)]
-            pixel_readout += (torch.stack([rd for rd, _ in reads])
-                              * bucket_sel[bi][None, :, None, None])
-            if self.use_long_term:
+            if self.mem_mesh is None:
+                reads = [radix_topk_readout(*self.read_inputs(state, feats, rep, r),
+                                            self.top_k) for r in range(b)]
+                rd = torch.stack([rd for rd, _ in reads])
                 usage = torch.stack([us for _, us in reads])        # [B, N]
-                state.lt_use += usage[:, pcap:pcap + lcap]
-                state.work_use += usage[:, pcap + lcap:].reshape(b, f, hw)
+                lt_usage, work_usage = usage[:, pcap:pcap + lcap], usage[:, pcap + lcap:]
+            else:
+                rd, lt_usage, work_usage = self.sharded_read(state, feats, rep,
+                                                             lt_valid)
+            pixel_readout += rd * bucket_sel[bi][None, :, None, None]
+            if self.use_long_term:
+                state.lt_use += lt_usage
+                state.work_use += work_usage.reshape(b, f, hw)
                 life_w = state.ring_valid() & state.work_obj_valid[rep]   # [F]
                 state.work_life += life_w.float()[None, :, None]
-                state.lt_life += (state.lt_valid()
-                                  & state.lt_obj_valid[rep]).float()[None]
+                state.lt_life += (lt_valid & state.lt_obj_valid[rep]).float()[None]
         return pixel_readout.transpose(2, 3).reshape(b, o, cv, h, w)
+
+    def sharded_read(self, state: MemoryState, feats: FrameFeatures, rep: int,
+                     lt_valid: torch.Tensor):
+        """One bucket's read over the memory mesh, every batch row at once
+        (cutie_tpu steps.py:_composite_bucket_read): (readout [B, O, HW,
+        Cv], lt usage of this rank's slots [B, L_local], work usage
+        [B, F*HW]; usages None outside long-term mode)."""
+        b, ck, h, w = feats.key.shape
+        hw = h * w
+        f = state.work_key.shape[1]
+        o, cv = state.num_objects, state.work_value.shape[-1]
+        pcap = state.perm_key.shape[1]
+        perm_valid = (torch.arange(pcap, device=state.perm_key.device) < state.perm_n)
+        work_valid = (state.ring_valid() & state.work_obj_valid[rep]).repeat_interleave(hw)
+
+        def rows(valid):
+            return valid[None].expand(b, -1)
+
+        return sharded_composite_readout(
+            (state.perm_key, state.perm_shrink, state.perm_value,
+             rows(perm_valid & state.perm_obj_valid[rep])),
+            (state.lt_key, state.lt_shrink, state.lt_value,
+             rows(lt_valid & state.lt_obj_valid[rep])),
+            (state.work_key.reshape(b, f * hw, ck), state.work_shrink.reshape(b, f * hw),
+             state.work_value.reshape(b, o, f * hw, cv), rows(work_valid)),
+            _tokens(feats.key).float(), _tokens(feats.selection).float(),
+            self.top_k, self.mem_mesh, lt_sharded=self.lt_sharded(),
+            return_usage=self.use_long_term)
 
     @torch.no_grad()
     def segment(self, state: MemoryState, feats: FrameFeatures,
@@ -278,7 +347,24 @@ class StepFunctions:
         ring (work_start, work_count).
 
         Ties in usage (many candidates have usage exactly 0) go to the lower
-        index, as jax.lax.top_k breaks them: a stable descending sort."""
+        index, as jax.lax.top_k breaks them: a stable descending sort.
+
+        Over sharded long-term buffers every rank gathers the whole of
+        them, consolidates as one device would (the eviction ranks the
+        usage of every slot) and keeps its slice: the result of the global
+        gathers XLA inserts for cutie_tpu's _consolidate."""
+        if self.lt_sharded():
+            whole = self.gather_lt(state)
+            self.consolidate_whole(whole, n_candidate_frames, lt_keep)
+            whole = slice_lt(whole, self.lt_shard())
+            for field in dataclasses.fields(state):
+                setattr(state, field.name, getattr(whole, field.name))
+        else:
+            self.consolidate_whole(state, n_candidate_frames, lt_keep)
+
+    def consolidate_whole(self, state: MemoryState, n_candidate_frames: int,
+                          lt_keep: Optional[int]) -> None:
+        """consolidate on a state whose long-term buffers are whole."""
         num_protos = self.num_prototypes
         b, f, hw, ck = state.work_key.shape
         o, cv = state.work_value.shape[1], state.work_value.shape[-1]

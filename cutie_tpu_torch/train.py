@@ -10,9 +10,15 @@ checkpoint, image grids, weights and checkpoints at their intervals, and a
 crash-save guard.
 
     python -m cutie_tpu_torch.train exp_id=first data.vos_datasets.base=... [overrides] [device=cpu]
+    torchrun --nproc_per_node=N -m cutie_tpu_torch.train ... [device=cpu]
 
 It trains on the card; device=cpu asks for the CPU. Without a card and
-without device=cpu it raises.
+without device=cpu it raises. Under torchrun (WORLD_SIZE > 1) each rank
+joins the process group (NCCL on the cards, rank r on card LOCAL_RANK;
+gloo on the CPU) and trains data-parallel: its rows of each global batch,
+gradients averaged across the ranks (training/trainer.py); rank 0 alone
+logs and saves. dist_init=<url> gives the rendezvous where torchrun's
+MASTER_ADDR is not set (e.g. file:///tmp/rendezvous).
 """
 from __future__ import annotations
 
@@ -182,9 +188,9 @@ def run_stage(cfg, stage_cfg, state_dict: Optional[Dict[str, np.ndarray]],
     first stage only. `trace`, when given, receives one record a step:
     it, epoch, max_skip, the ms spent waiting for the loader and the ms of
     the step, and the losses."""
-    from cutie_tpu_torch.data.setup_training_data import (process_rank,
-                                                          setup_main_training_datasets,
+    from cutie_tpu_torch.data.setup_training_data import (setup_main_training_datasets,
                                                           setup_pre_training_datasets)
+    from cutie_tpu_torch.parallel.mesh import make_mesh, process_rank
     from cutie_tpu_torch.training.trainer import Trainer
     from cutie_tpu_torch.utils.get_default_model import build_model
     from cutie_tpu_torch.utils.image_saver import vis_sequence
@@ -202,7 +208,11 @@ def run_stage(cfg, stage_cfg, state_dict: Optional[Dict[str, np.ndarray]],
     torch.manual_seed(seed)
     model = build_model(model_cfg, device=device, state_dict=state_dict,
                         single_object=single_object)
-    trainer = Trainer(model_cfg, stage_cfg, model)
+    # data parallelism over every rank, each taking its rows of the global
+    # batch (cutie_tpu/train.py:188-194; the loader raises when the batch
+    # does not divide across the ranks)
+    mesh = make_mesh() if torch.distributed.is_initialized() else None
+    trainer = Trainer(model_cfg, stage_cfg, model, mesh=mesh)
     if cfg.checkpoint is not None:
         # resume applies to the first enabled stage only (reference
         # train.py:84-89 loads then clears): a pre_training checkpoint must
@@ -303,7 +313,7 @@ def run_stage(cfg, stage_cfg, state_dict: Optional[Dict[str, np.ndarray]],
 def setup_rank_logging(run_path: str) -> None:
     """Per-rank log files with rank-tagged formatters (reference
     cutie/config/hydra/job_logging/custom.yaml:4-16)."""
-    from cutie_tpu_torch.data.setup_training_data import process_rank
+    from cutie_tpu_torch.parallel.mesh import process_rank
 
     rank, _ = process_rank()
     fmt = logging.Formatter(
@@ -321,19 +331,26 @@ def setup_rank_logging(run_path: str) -> None:
 
 
 def main(argv=None):
-    from cutie_tpu_torch.data.setup_training_data import process_rank
-    from cutie_tpu_torch.utils.get_default_model import (apply_object_surgery,
-                                                         load_torch_npz)
-    from cutie_tpu_torch.utils.logger import TensorboardLogger
+    from cutie_tpu_torch.parallel.launch import join_launch, pop_launch_args
 
     argv = list(sys.argv[1:] if argv is None else argv)
-    device = "cuda"
-    for arg in [a for a in argv if a.startswith("device=")]:
-        device = arg.partition("=")[2]
-        argv.remove(arg)
+    device, dist_init = pop_launch_args(argv)
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("training runs on the card, and torch.cuda.is_available() "
                            "is False; pass device=cpu to train on the CPU")
+    device, joined = join_launch(device, dist_init)
+    try:
+        return _train(argv, device)
+    finally:
+        if joined:
+            torch.distributed.destroy_process_group()
+
+
+def _train(argv: List[str], device: torch.device):
+    from cutie_tpu_torch.parallel.mesh import process_rank
+    from cutie_tpu_torch.utils.get_default_model import (apply_object_surgery,
+                                                         load_torch_npz)
+    from cutie_tpu_torch.utils.logger import TensorboardLogger
 
     cfg = train_config()
     cfg.apply_overrides(argv)
@@ -361,6 +378,9 @@ def main(argv=None):
             continue
         log.info("=== stage %s ===", stage_name)
         state_dict = run_stage(cfg, stage_cfg, state_dict, run_path, logger, device)
+        if torch.distributed.is_initialized():
+            # every rank has finished the stage (rank 0 has saved it)
+            torch.distributed.barrier()
         if stage_name == "pre_training" and stage_cfg.num_objects == 1:
             # single- to multi-object surgery for the hand-off
             # (reference cutie/model/cutie.py:212-256)

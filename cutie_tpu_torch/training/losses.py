@@ -85,15 +85,29 @@ class LossComputer:
                 dice_loss(torch.softmax(point_logits, dim=1), labels, ch_mask))
 
     def compute(self, data: Dict[str, torch.Tensor], selector: torch.Tensor,
-                draw: PointDraw) -> Dict[str, torch.Tensor]:
+                draw: PointDraw, rows: Optional[Tuple[int, int]] = None
+                ) -> Dict[str, torch.Tensor]:
         """data: {'logits_low' [B, T-1, C, h4, w4] (stride 4, before the
         upsample), 'cls_gt' [B, T-1, H, W] integer, and optionally
         'sensory_logits' [B, T-1, C, h, w], 'q_logits' [B, T-1, C, L, h, w]};
         selector [B, O] with C = O + 1. Points are drawn per sequence, in
         cutie_tpu's order: the main head, the sensory head, then each query
-        level. Returns the batch means and their sum, 'total_loss'."""
+        level. rows: (offset, global batch) when data holds rows [offset,
+        offset + B) of a larger batch: the points are drawn for every
+        sequence of the global batch and each row takes its sequence's.
+        Returns the means over the rows and their sum, 'total_loss'."""
+        b = data["logits_low"].shape[0]
+        offset, global_b = rows or (0, b)
+        n = data["cls_gt"].shape[1]
+        draws = 1 + ("sensory_logits" in data) + (
+            data["q_logits"].shape[3] if "q_logits" in data else 0)
         per_seq = []
-        for bi in range(data["logits_low"].shape[0]):
+        for gi in range(global_b):
+            bi = gi - offset
+            if not 0 <= bi < b:
+                for _ in range(draws):   # another rank's sequence
+                    draw(n, data["cls_gt"].device)
+                continue
             cls_gt = data["cls_gt"][bi]
             ch_mask = selector[bi]
             n = cls_gt.shape[0]

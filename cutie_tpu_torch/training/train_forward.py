@@ -10,7 +10,11 @@ are not detached between frames: the gradient runs back through time, as
 in cutie_tpu.
 
 The random choices (reference subsets, deep updates) are drawn on the host
-from a CPU torch.Generator, so the unroll never waits for the device.
+from a CPU torch.Generator, so the unroll never waits for the device. A
+data-parallel rank draws them for the whole global batch and takes its own
+rows, so every rank's generator stays in step and one rank of D equals one
+process on the global batch (cutie_tpu draws one key for its sharded global
+batch).
 stage_cfg.remat runs each stage call under torch.utils.checkpoint, which
 keeps its inputs and recomputes the rest in the backward (cutie_tpu's
 jax.checkpoint). Each stage method enters its own autocast (models/cutie.py:
@@ -18,7 +22,7 @@ _stage), so the recompute runs at the same precision.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -37,7 +41,8 @@ def _stage_caller(model: CUTIE, remat: bool):
 
 
 def train_forward(model: CUTIE, data: Dict[str, torch.Tensor],
-                  generator: torch.Generator, stage_cfg
+                  generator: torch.Generator, stage_cfg,
+                  rows: Optional[Tuple[int, int]] = None
                   ) -> Dict[str, torch.Tensor]:
     """
     data (on the model's device):
@@ -45,7 +50,8 @@ def train_forward(model: CUTIE, data: Dict[str, torch.Tensor],
       first_frame_gt  [B, O, H, W] one-hot (padded object channels zero)
       selector        [B, O] 1 / 0
     generator: a CPU torch.Generator for the reference subsets and the deep
-    updates.
+    updates. rows: (offset, global batch) when data holds rows [offset,
+    offset + B) of a larger batch (a data-parallel rank).
     Returns {'logits' [B, T-1, O+1, H, W], 'logits_low' [B, T-1, O+1, H/4,
     W/4] (before the upsample; the loss samples it), 'sensory_logits'
     [B, T-1, O+1, H/16, W/16], 'q_logits' [B, T-1, O+1, L, H/16, W/16]}.
@@ -58,6 +64,7 @@ def train_forward(model: CUTIE, data: Dict[str, torch.Tensor],
     num_objects = first_frame_gt.shape[1]
     num_ref = stage_cfg.num_ref_frames
     deep_update_prob = float(stage_cfg.deep_update_prob)
+    offset, global_b = rows or (0, b)
 
     # one backbone pass over all frames (train_wrapper.py:42-45)
     ms_feat, pix_feat = call("encode_image", frames.flatten(0, 1))
@@ -90,7 +97,8 @@ def train_forward(model: CUTIE, data: Dict[str, torch.Tensor],
             # a random subset of the ti stored frames, per sequence
             # (train_wrapper.py:76-81)
             ridx = torch.stack([torch.randperm(ti, generator=generator)[:num_ref]
-                                for _ in range(b)]).to(frames.device)
+                                for _ in range(global_b)])
+            ridx = ridx[offset:offset + b].to(frames.device)
             rows = torch.arange(b, device=frames.device)[:, None]
             ref_msk_values = torch.stack(msk_values, dim=1)[rows, ridx]
             ref_msk_values = ref_msk_values.permute(0, 2, 3, 1, 4, 5)

@@ -11,17 +11,29 @@ torch's AdamW decays the parameter before its Adam step where optax adds
 the decay to the update: one step from the same parameters computes the
 same update. clip_grad_norm_ divides by the norm plus 1e-6 where optax
 divides by the norm.
+
+Data parallelism (cutie_tpu trainer.py:89-155: replicated parameters, a
+batch-sharded step): with a mesh, each rank holds a replica and its rows
+of the global batch. The parameters are broadcast from rank 0 at
+construction and after a checkpoint load; after the backward the gradients
+are averaged across the mesh in one coalesced all-reduce, so that the clip
+and the step see the global batch's gradient on every rank and the
+replicas stay bit-equal. An explicit all-reduce and not
+DistributedDataParallel: every parameter keeps a gradient every step (zero
+where the step does not reach it), and some steps do not reach the
+deep-update GRU at all.
 """
 from __future__ import annotations
 
 import logging
 import os
-from typing import Any, Callable, Dict, Mapping
+from typing import Any, Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
 from cutie_tpu_torch.models.cutie import CUTIE
+from cutie_tpu_torch.parallel.mesh import Mesh, all_reduce_mean_, broadcast_
 from cutie_tpu_torch.training.losses import LossComputer
 from cutie_tpu_torch.training.train_forward import train_forward
 
@@ -88,7 +100,9 @@ class Trainer:
     """Holds the model and its optimizer and runs training steps on the
     model's device."""
 
-    def __init__(self, cfg, stage_cfg, model: CUTIE):
+    def __init__(self, cfg, stage_cfg, model: CUTIE, mesh: Optional[Mesh] = None):
+        """mesh: the data-parallel ranks (parallel.mesh.make_mesh), whose
+        batches are each rank's rows of the global batch, in rank order."""
         if (model.compute_dtype == torch.bfloat16) != bool(stage_cfg.amp):
             raise ValueError(
                 f"stage {stage_cfg.get('name')} has amp={stage_cfg.amp} but the "
@@ -96,6 +110,7 @@ class Trainer:
                 f"cfg.amp = stage_cfg.amp")
         self.stage_cfg = stage_cfg
         self.model = model
+        self.mesh = mesh
         self.device = model.pixel_mean.device
         self.loss_computer = LossComputer(cfg, stage_cfg)
         self.optimizer = make_optimizer(model, stage_cfg)
@@ -109,6 +124,13 @@ class Trainer:
         self.it = 0        # completed steps, as the caller counts them
         self.updates = 0   # optimizer updates applied: the schedule's count
         self.last_logits = None
+        self.sync_replicas()
+
+    def sync_replicas(self) -> None:
+        """Every rank's model takes rank 0's parameters and buffers."""
+        if self.mesh is not None:
+            broadcast_(list(self.model.parameters()) + list(self.model.buffers()),
+                       self.mesh)
 
     def upload_batch(self, data: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         """A host batch on the model's device, uploaded asynchronously: each
@@ -132,7 +154,11 @@ class Trainer:
         device: reading them waits for the step)."""
         data = {k: torch.as_tensor(data[k], device=self.device)
                 for k in DATA_KEYS}
-        out = train_forward(self.model, data, generator, self.stage_cfg)
+        rows = None
+        if self.mesh is not None:
+            b = data["frames"].shape[0]
+            rows = (self.mesh.rank * b, self.mesh.size * b)
+        out = train_forward(self.model, data, generator, self.stage_cfg, rows)
         loss_in = {"logits_low": out["logits_low"], "cls_gt": data["cls_gt"][:, 1:]}
         for k in ("sensory_logits", "q_logits"):
             if k in out:
@@ -142,15 +168,23 @@ class Trainer:
         seed = int(torch.randint(2 ** 62, (), generator=generator))
         points = torch.Generator(device=self.device).manual_seed(seed)
         losses = self.loss_computer.compute(
-            loss_in, data["selector"], self.loss_computer.uniform_draw(points))
+            loss_in, data["selector"], self.loss_computer.uniform_draw(points), rows)
         self.optimizer.zero_grad(set_to_none=False)
         losses["total_loss"].backward()
+        self.average_gradients()
         self.apply_gradients()
         self.last_logits = out["logits"].detach()
         # the completed-step count (cutie_tpu's trainer.it): a checkpoint
         # records it, and a resumed run continues from it
         self.it = it + 1
         return {k: v.detach() for k, v in losses.items()}
+
+    def average_gradients(self) -> None:
+        """The gradients averaged across the mesh: each rank's loss is the
+        mean over its rows, so with equal rows a rank the average is the
+        global batch's gradient."""
+        if self.mesh is not None:
+            all_reduce_mean_([p.grad for p in self.params], self.mesh)
 
     def apply_gradients(self) -> None:
         """Clip the gradients by their global norm, set each group's LR from
@@ -190,5 +224,6 @@ class Trainer:
         self.optimizer.load_state_dict(ckpt["optimizer"])
         self.it = int(ckpt["it"])
         self.updates = int(ckpt["updates"])
+        self.sync_replicas()
         log.info("checkpoint loaded from %s (it=%d)", path, self.it)
         return self.it

@@ -251,10 +251,13 @@ def test_rle_and_palette_match_cutie_tpu():
 def test_config_matches_cutie_tpu(model, plus):
     """eval_config / eval_plus_config equal to cutie_tpu's key for key
     (including the keys the port carries and ignores: max_objects,
-    matmul_precision, read_backend), and get_dataset_cfg equal on every
+    matmul_precision, read_backend), plus mem_mesh_devices = 0, the default
+    cutie_tpu reads the key with, and get_dataset_cfg equal on every
     preset, with and without explicit top-level values."""
     make = "eval_plus_config" if plus else "eval_config"
     port, ref = getattr(port_config, make)(model), getattr(jax_config, make)(model)
+    assert "mem_mesh_devices" not in ref
+    ref.mem_mesh_devices = 0
     assert port.to_dict() == ref.to_dict()
     assert port.mem_every is None and port.use_long_term is None
     for name in ref.datasets.keys():
@@ -278,6 +281,7 @@ def test_apply_overrides_match_cutie_tpu():
                  "chunk_size=.5", "subset=a_b.txt", "save_scores=on"]
     port = port_config.eval_config("small").apply_overrides(overrides)
     ref = jax_config.eval_config("small").apply_overrides(overrides)
+    ref.mem_mesh_devices = 0   # the port's one key more (test_config_matches_cutie_tpu)
     assert port.to_dict() == ref.to_dict()
 
 

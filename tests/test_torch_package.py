@@ -35,7 +35,10 @@ def _imports(path: Path):
             yield node.module.split(".")[0], id(node) in top
 
 
-PY_FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+# the module the spawned ranks of the multi-device tests import
+# (tests/test_torch_parallel.py, tests/test_torch_ddp.py)
+RANKS = REPO / "tests" / "torch_parallel_ranks.py"
+PY_FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", RANKS]
 
 
 @pytest.mark.parametrize("path", PY_FILES, ids=lambda p: str(p.relative_to(REPO)))
@@ -78,10 +81,27 @@ def test_every_module_imports_without_optional_packages():
             "cutie_tpu_torch.data.loader", "cutie_tpu_torch.data.setup_training_data",
             "cutie_tpu_torch.scripts.convert_burst_to_vos_train",
             "cutie_tpu_torch.ritm.utils", "cutie_tpu_torch.ritm.brs",
-            "cutie_tpu_torch.interactive_demo"} | {
+            "cutie_tpu_torch.interactive_demo", "cutie_tpu_torch.parallel",
+            "cutie_tpu_torch.parallel.mesh", "cutie_tpu_torch.parallel.sharded_memory",
+            "cutie_tpu_torch.parallel.launch", "tests.torch_parallel_ranks"} | {
             f"cutie_tpu_torch.gui.{m}" for m in (
                 "interactive_utils", "interaction", "resource_manager", "reader",
                 "exporter", "main_controller", "tk_widgets", "widgets")} <= set(modules)
+
+
+def test_spawned_rank_imports_no_jax():
+    """What a spawned rank imports (the parallel package, the ranks' module
+    and chip_smoke.py, whose multi phase spawns ranks) brings in neither
+    JAX nor cutie_tpu."""
+    code = ("import sys\n"
+            "import chip_smoke, cutie_tpu_torch.parallel.launch, tests.torch_parallel_ranks\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r})\n"
+            "print(bad)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, timeout=300,
+                         capture_output=True, text=True)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip() == "[]"
 
 
 def test_cuda_sources_are_plain_c():
