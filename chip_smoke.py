@@ -89,12 +89,17 @@ Phases, each printing one JSON line with its wall seconds:
              tests/golden/ritm_state_dict.npz, its forward held to
              ritm_stages.npz and to the CPU's; ClickController (the GUI's
              predictor parameters) on frame 0 of the synthetic 480x854
-             video with bench.py's two-pass protocol, with NoBRS and
-             f-BRS-B, each in fp32 and amp: the median warm click of the
-             second pass, L-BFGS evaluations a click, probabilities in
-             [0, 1], fp32 masks against a CPU controller's; DeepLab on
-             seeded random weights, card against CPU; neither read kernel
-             is launched;
+             video with bench.py's two-pass protocol, with NoBRS, and
+             f-BRS-B with each L-BFGS driver (the device drive of
+             ritm/lbfgs.py, the default, and scipy's on the host,
+             host_lbfgs=True), each in fp32 and amp: the median warm click
+             of the second pass, L-BFGS evaluations a click, the drive's
+             host reads and the synchronizing CUDA calls a click, a profiled
+             pass, probabilities in [0, 1], fp32 masks against a CPU
+             controller's, the device drive's masks against the host
+             drive's (IoU > 0.8 in fp32), its evaluations (not all 0) and
+             budget; DeepLab on seeded random weights, card against CPU;
+             neither read kernel is launched;
   gui        the interactive GUI's controller (cutie_tpu_torch/gui/): (a)
              the stream phase's golden through MainController (a workspace
              of PNGs, the first mask imported as a palette PNG, on_propagate
@@ -102,7 +107,8 @@ Phases, each printing one JSON line with its wall seconds:
              launched once a frame after the first; (b) the GUI's own
              session at interactive_demo.py's defaults (amp, long-term
              memory, max_internal_size 480, two objects) on the committed
-             480x854 JPEG frames: f-BRS-B clicks on both objects, commit,
+             480x854 JPEG frames: f-BRS-B clicks on both objects (the
+             driver that ran and its evaluations reported), commit,
              propagation forward, a click on the last frame, propagation
              backward, mem_every changed, binary-mask export, video export
              (an ImportError naming PyAV and cv2 where neither is
@@ -113,6 +119,11 @@ Phases, each printing one JSON line with its wall seconds:
              save queue's drain; (c) the JPEG encoder (g++ here) byte for
              byte against the committed Pillow and cv2 references in
              tests/torch_fixtures/jpeg_enc/, ms to encode 480x854 at q95;
+  render     the software-rendered GUI session
+             (python -m cutie_tpu_torch.tools.render_gui_session) on the card
+             and on the CPU (cutie-base, the trained test weights): refresh
+             and panel counts equal, the storyboard PNG read back, six
+             masks saved by each, kernel #1 launched in the propagation;
   multi      the multi-device layer (cutie_tpu_torch/parallel/), ranks
              spawned with a file:// rendezvous at world 1 on NCCL and at
              world 2 on gloo with both ranks on cuda:0 (NCCL takes one rank
@@ -1615,19 +1626,42 @@ def click_pass(ctrl, image, h, w):
     """bench.py:bench_click_latency's pass: the anchor click at (w/3, h/3),
     then CLICKS clicks 10 px apart, alternately positive and negative; the
     anchor's and each click's wall ms (the probabilities fetched to the
-    host), the outputs and, with f-BRS, each click's L-BFGS evaluations."""
+    host), the outputs and, with f-BRS, each click's L-BFGS evaluations and
+    the device drive's report (lbfgs_drive's info; None with scipy)."""
     ctrl.unanchor()
     t0 = time.perf_counter()
     outs = [ctrl.interact(image, w // 3, h // 3, True)]
     anchor_ms = (time.perf_counter() - t0) * 1e3
-    ms, evals = [], []
+    ms, evals, drive = [], [], []
     for i in range(CLICKS):
         t0 = time.perf_counter()
         outs.append(ctrl.interact(image, w // 3 + 10 * (i + 1), h // 3, i % 2 == 0))
         ms.append((time.perf_counter() - t0) * 1e3)
         functor = getattr(ctrl.controller.predictor, "opt_functor", None)
         evals.append(functor.n_evals if functor is not None else 0)
-    return anchor_ms, ms, evals, outs
+        drive.append(functor.drive_info if functor is not None else None)
+    return anchor_ms, ms, evals, outs, drive
+
+
+def synchronizing_calls(ctrl, image, h, w):
+    """click_pass under torch.cuda.set_sync_debug_mode('warn'): the CUDA
+    calls that make the host wait (reads of the device, blocking uploads)
+    of each click after the anchor, counted by their warnings."""
+    import warnings
+    ctrl.unanchor()
+    counts = []
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            ctrl.interact(image, w // 3, h // 3, True)
+            for i in range(CLICKS):
+                seen = len(rec)
+                ctrl.interact(image, w // 3 + 10 * (i + 1), h // 3, i % 2 == 0)
+                counts.append(len(rec) - seen)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return counts
 
 
 def mask_iou(a, b):
@@ -1688,46 +1722,79 @@ def ritm_forward():
             and all(np.isfinite(o).all() for o in outs["cuda"])}
 
 
+RITM_DRIVER_IOU_MIN = 0.8   # tests/test_ritm.py:377, between cutie_tpu's two drivers
+
+
 def ritm_clicks():
-    """ClickController (f-BRS-B and NoBRS, fp32 and amp) on the golden
-    weights on the card, on frame 0 of the synthetic 480x854 video, with
-    bench.py's two-pass protocol; the median warm click of the second pass,
-    L-BFGS evaluations a click, the probabilities' range, a third pass
-    under torch.profiler; fp32 masks against a CPU controller's on the
-    same clicks."""
+    """ClickController on the golden weights on the card, on frame 0 of the
+    synthetic 480x854 video, with bench.py's two-pass protocol: NoBRS, and
+    f-BRS-B with the device drive (the default) and with scipy's L-BFGS on
+    the host (host_lbfgs=True), each in fp32 and amp. Per run: the median
+    warm click of the second pass, L-BFGS evaluations a click, the
+    synchronizing CUDA calls a click (a third pass), a fourth pass under
+    torch.profiler, the probabilities' range, the run's seconds; fp32 masks
+    against a CPU controller's on the same clicks (NoBRS and the default
+    driver); the device drive's masks against the host drive's (IoU >
+    RITM_DRIVER_IOU_MIN in fp32), its evaluations (not all 0) and its
+    budget (below maxfun before the last line search)."""
     frame = synth_frames_480(1)[0][0]
     h, w = frame.shape[1:]
     runs, ok = {}, True
-    for brs_mode in ("NoBRS", "f-BRS-B"):
-        cpu_outs = None
+    for brs_mode, host_lbfgs in (("NoBRS", False), ("f-BRS-B", False), ("f-BRS-B", True)):
+        name = brs_mode + (" host" if host_lbfgs else "")
         for amp in (False, True):
-            ctrl = ClickController(str(RITM_WEIGHTS), brs_mode=brs_mode, amp=amp)
-            _, first_ms, _, _ = click_pass(ctrl, frame, h, w)
-            anchor_ms, ms, evals, outs = click_pass(ctrl, frame, h, w)
+            t0 = time.perf_counter()
+            ctrl = ClickController(str(RITM_WEIGHTS), brs_mode=brs_mode, amp=amp,
+                                   host_lbfgs=host_lbfgs)
+            _, first_ms, _, _, _ = click_pass(ctrl, frame, h, w)
+            anchor_ms, ms, evals, outs, drive = click_pass(ctrl, frame, h, w)
             valid = all(np.isfinite(o).all() and o.min() >= 0.0 and o.max() <= 1.0
                         and o.shape == (1, 1, h, w) for o in outs)
             run = {"median_warm_click_ms": float(np.median(ms)), "click_ms": ms,
                    "first_pass_click_ms": first_ms, "lbfgs_evals": evals,
                    "probabilities_valid": valid,
+                   "synchronizing_calls": synchronizing_calls(ctrl, frame, h, w),
                    "profiled_pass": profiled(lambda: click_pass(ctrl, frame, h, w),
                                              anchor_ms + sum(ms))}
-            if not amp:
-                fp32_outs = outs
-                cpu = ClickController(str(RITM_WEIGHTS), brs_mode=brs_mode,
-                                      device="cpu")
+            if brs_mode != "NoBRS":
+                pred = ctrl.controller.predictor
+                run["driver"] = "scipy fmin_l_bfgs_b" if pred.host_lbfgs else "lbfgs_drive"
+            if drive[0] is not None:
+                run["drive"] = drive
+                run["drive_host_reads"] = [d["host_reads"] for d in drive]
+                maxfun = ctrl.controller.predictor.opt_functor.optimizer_params["maxfun"]
+                run["within_budget"] = all(
+                    e - (d["linesearch_steps"] or [0])[-1] < maxfun
+                    for e, d in zip(evals, drive))
+                ok &= sum(evals) > 0 and run["within_budget"]
+            key = f"{name} {'amp' if amp else 'fp32'}"
+            if not amp and not host_lbfgs:
+                cpu = ClickController(str(RITM_WEIGHTS), brs_mode=brs_mode, device="cpu")
                 cpu_outs = click_pass(cpu, frame, h, w)[3]
                 run["card_vs_cpu_mask_iou"] = [mask_iou(a, b)
                                                for a, b in zip(outs, cpu_outs)]
                 if brs_mode == "NoBRS":
                     ok &= min(run["card_vs_cpu_mask_iou"]) >= CLICK_IOU_MIN
-            else:
+            if host_lbfgs and not amp:
+                ok &= all(e >= 1 for e in evals)
+            fp32 = runs.get(f"{name} fp32")
+            if amp:
                 run["amp_vs_fp32_mask_iou"] = [mask_iou(a, b)
-                                               for a, b in zip(outs, fp32_outs)]
+                                               for a, b in zip(outs, fp32["outs"])]
+            device = runs.get(f"f-BRS-B {'amp' if amp else 'fp32'}")
+            if host_lbfgs:
+                iou = [mask_iou(a, b) for a, b in zip(device["outs"], outs)]
+                run["device_drive_vs_host_drive_mask_iou"] = iou
+                if not amp:
+                    ok &= min(iou) > RITM_DRIVER_IOU_MIN
             ok &= valid
-            runs[f"{brs_mode} {'amp' if amp else 'fp32'}"] = run
+            run["outs"] = outs
+            run["seconds"] = time.perf_counter() - t0
+            runs[key] = run
             del ctrl
             torch.cuda.empty_cache()
-    ok &= all(e >= 1 for e in runs["f-BRS-B fp32"]["lbfgs_evals"])
+    for run in runs.values():
+        del run["outs"]
     return {"runs": runs, "ok": bool(ok)}
 
 
@@ -1919,12 +1986,17 @@ def gui_session(root):
         return consolidate(state, n, lt_keep)
 
     steps.memorize, steps.consolidate = count_memorize, count_consolidate
-    gauges, click_ms = {}, []
+    gauges, click_ms, click_evals = {}, [], []
 
     def click(x, y, neg=False):
         t1 = time.perf_counter()
         ctl.click(x, y, is_neg=neg)
         click_ms.append(1e3 * (time.perf_counter() - t1))
+        pred = ctl.click_ctrl.controller.predictor
+        info = pred.opt_functor.drive_info
+        click_evals.append({"driver": "scipy fmin_l_bfgs_b" if pred.host_lbfgs
+                            else "lbfgs_drive", "lbfgs_evals": pred.opt_functor.n_evals,
+                            "exit": info["exit"] if info else None})
 
     ctl.curr_object = 1
     click(*object_point(gt, 1, 3))
@@ -1999,6 +2071,7 @@ def gui_session(root):
           and binary == [f"{n}.png" for n in names] and len(click_ms) == 6)
     return {"frames": ctl.T, "size": [ctl.h, ctl.w], "controller_build_seconds": build_s,
             "click_ms": click_ms, "median_warm_click_ms": float(np.median(click_ms[1:])),
+            "clicks": click_evals,
             "forward_seconds": forward_s, "forward_frame_ms": forward_ms,
             "forward_ms_per_frame": 1e3 * forward_s / (ctl.T - 1),
             "forward_warm_frame_ms_median": warm_ms(forward_ms),
@@ -2063,6 +2136,60 @@ def phase_gui(stream):
           "seconds": time.perf_counter() - t0})
     if not ok:
         raise RuntimeError("gui phase failed")
+    return launches
+
+
+# ----------------------------------------------------------------- render
+
+def phase_render():
+    """The software-rendered GUI session
+    (cutie_tpu_torch/tools/render_gui_session.py) on the card and on the
+    CPU, each into a temporary directory: the reference tool's session (6
+    frames of stream_small_work.npz, mem_every 3, a click, the imported
+    mask, forward propagation, commit) through MainController, on
+    cutie-base with the trained test weights (the small golden weights are
+    not in the card's copy); the refresh and panel counts of the card
+    against the CPU's, the storyboard read back through image_io.read_png,
+    the saved masks of the two runs, and kernel #1 launched in the card's
+    propagation."""
+    from cutie_tpu_torch.tools import render_gui_session as tool
+
+    t0 = time.perf_counter()
+    read_kernel.radix_topk_readout.launches = 0
+    read_kernel.fused_topk_readout.launches = 0
+    runs, launches = {}, None
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        for device in ("cuda", "cpu"):
+            t1 = time.perf_counter()
+            runs[device] = tool.main(
+                ["--device", device, "--workspace", str(root / device), "--model", "base",
+                 "--weights", str(TRAINED_WEIGHTS), "--out", str(root / f"{device}.png")])
+            runs[device]["seconds"] = time.perf_counter() - t1
+            if launches is None:
+                launches = {"radix_topk_readout": read_kernel.radix_topk_readout.launches,
+                            "fused_topk_readout": read_kernel.fused_topk_readout.launches}
+        board, mode, _ = read_png(runs["cuda"]["out"])
+        rows = -(-runs["cuda"]["panels"] // 2)
+        board_ok = (mode == "RGB" and board.shape == (
+            (tool.WIN_H + 18) * rows + 6, 2 * tool.WIN_W + 12, 3))
+        mask_dir = {d: root / d / "workspace" / "masks" for d in runs}
+        names = sorted(os.listdir(mask_dir["cuda"]))
+        ious = [mask_iou(*(read_png(str(mask_dir[d] / n))[0] for d in ("cuda", "cpu")))
+                for n in names]
+        same_files = names == sorted(os.listdir(mask_dir["cpu"]))
+    counts = {d: {k: r[k] for k in ("refreshes", "panels", "seconds")} for d, r in runs.items()}
+    ok = (board_ok and runs["cuda"]["refreshes"] == runs["cpu"]["refreshes"]
+          and runs["cuda"]["panels"] == runs["cpu"]["panels"]
+          and runs["cuda"]["labels"] == runs["cpu"]["labels"] and same_files
+          and len(names) == 6 and launches["radix_topk_readout"] > 0
+          and launches["fused_topk_readout"] == 0)
+    emit({"phase": "render", "runs": counts, "storyboard_shape": list(board.shape),
+          "storyboard_ok": bool(board_ok), "masks_saved": len(names),
+          "saved_mask_iou_card_vs_cpu": ious, "launches": launches, "ok": bool(ok),
+          "seconds": time.perf_counter() - t0})
+    if not ok:
+        raise RuntimeError("render phase failed")
     return launches
 
 
@@ -2501,6 +2628,7 @@ def main():
     by_path["train_entry"] = phase_train_entry(in_memory_step_ms)
     by_path["ritm"] = phase_ritm()
     by_path["gui"] = phase_gui(sres)
+    by_path["render"] = phase_render()
     kres = phase_kernel(lres["case"])
     fres = phase_fused(sres["case"], kres["cases"]["lvos600"])
     by_path["multi"] = phase_multi(lres, kres["cases"]["lvos600"], smi)

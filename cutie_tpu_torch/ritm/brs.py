@@ -8,17 +8,22 @@ gui/ritm/inference/predictors/{brs,brs_functors,brs_losses}.py):
     cls_head: f-BRS-C), the head rerun on the cached backbone features;
   - InputBRSPredictor: an additive bias on the normalised RGB (RGB-BRS) or
     on the click maps (DistMap-BRS), through the whole forward;
-  - ScaleBiasOptimizer / InputOptimizer, the function that scipy's
-    fmin_l_bfgs_b calls, with the reference's exits: the clicks already
-    satisfied, or the mask's IoU change under min_iou_diff;
+  - ScaleBiasOptimizer / InputOptimizer, the functor with the reference's
+    exits: the clicks already satisfied, or the mask's IoU change under
+    min_iou_diff;
   - brs_mask_loss (BRSMaskLoss) and click_maps_from_points.
 
-scipy's L-BFGS runs on the host, as cutie_tpu's host_lbfgs=True path does
-(brs.py:447-475, :642); each evaluation takes the loss and its gradient by
-torch autograd on the model's device (where cutie_tpu takes
-jax.value_and_grad) and fetches the gradient and three scalars. cutie_tpu's
-default, the whole optimisation as one on-device graph (device_lbfgs_drive),
-is not ported (ROADMAP.md section 3, D7).
+Two drivers, as in cutie_tpu. By default (host_lbfgs=False) a click runs
+ritm/lbfgs.py:lbfgs_drive, the port of cutie_tpu's device_lbfgs_drive
+(optax's L-BFGS with its zoom line search, the exits and the budget in the
+drive): the scale/bias vector, the gradients and the L-BFGS memory stay on
+the model's device, the click maps are built there from the click
+coordinates over the padded canvas (brs.py:314), and the best low-resolution
+logits are upsampled once at the end. With host_lbfgs=True, scipy's
+fmin_l_bfgs_b runs on the host, as cutie_tpu's host_lbfgs=True path does
+(brs.py:447-475, :642): each evaluation takes the loss and its gradient by
+torch autograd on the model's device and fetches the gradient and three
+scalars. Either way the functor's n_evals counts a click's evaluations.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ from scipy.optimize import fmin_l_bfgs_b
 from cutie_tpu_torch.ops.resize import (bilinear_resize_align_corners,
                                         bilinear_resize_align_corners_mm)
 from cutie_tpu_torch.ritm.inference import Click, Predictor, pad_hw, pad_to
+from cutie_tpu_torch.ritm.lbfgs import lbfgs_drive
 
 DEFAULT_LBFGS_PARAMS = {"m": 20, "factr": 0, "pgtol": 1e-8, "maxfun": 20,
                         "maxiter": 40}
@@ -40,7 +46,9 @@ class ScaleBiasOptimizer:
     """(brs_functors.py BaseOptimizer + ScaleBiasOptimizer) The function
     scipy's L-BFGS calls: x (float64) -> [loss, gradient], with a zero
     gradient, which ends the search, once the clicks are satisfied or the
-    mask has stopped changing. n_evals counts the evaluations of a click."""
+    mask has stopped changing. n_evals counts the evaluations of a click,
+    on either driver; drive_info is the device drive's last report
+    (lbfgs_drive's info)."""
 
     def __init__(self, optimizer_params=None, prob_thresh=0.49, reg_weight=1e-3,
                  min_iou_diff=0.01, with_flip=False, flip_average=False,
@@ -57,6 +65,7 @@ class ScaleBiasOptimizer:
         self.reg_bias_weight = reg_bias_weight
         self.best_prediction = None
         self.n_evals = 0
+        self.drive_info = None
         self._eval = None
         self._best_loss = None
         self._last_mask = None
@@ -168,11 +177,12 @@ def padded_click_maps(clicks_lists, h, w, hp, wp, device):
 
 
 def _value_and_grad(objective, xv: np.ndarray, device):
-    """objective(x) -> (loss, logits, f_max_pos, f_max_neg) at the float64
-    host vector xv, with the loss's gradient by autograd."""
+    """objective(x) -> (loss, low-resolution logits, logits, f_max_pos,
+    f_max_neg) at the float64 host vector xv -> (loss, its gradient by
+    autograd, logits, f_max_pos, f_max_neg)."""
     x = torch.from_numpy(np.asarray(xv, np.float32)).to(device).requires_grad_()
     with torch.enable_grad():
-        loss, logits, fmp, fmn = objective(x)
+        loss, _, logits, fmp, fmn = objective(x)
         grad, = torch.autograd.grad(loss, x)
     return loss.detach(), grad, logits.detach(), fmp.detach(), fmn.detach()
 
@@ -191,16 +201,31 @@ def _consistency(functor, low, pos, neg, out_h, out_w, w):
     return loss, logits, fmp, fmn
 
 
+def _drive_objective(objective):
+    """A predictor's objective as lbfgs_drive's: x -> (loss, (the
+    low-resolution logits [B, h, w], the mask logits > 0 [B, Hp, Wp], fmp,
+    fmn)), as cutie_tpu's _objective_from returns them (brs.py:269-295,
+    :522-540)."""
+    def fn(x):
+        loss, low, logits, fmp, fmn = objective(x)
+        return loss, (low[:, 0], logits > 0, fmp, fmn)
+
+    return fn
+
+
 class _BRSPredictor(Predictor):
     """What both BRS predictors share: the functor, the click count after
-    which they optimise, and the optimised vector (opt_data, host float32),
-    which undo restores."""
+    which they optimise, the driver (host_lbfgs: scipy on the host, else
+    the device drive, cutie_tpu's default), and the optimised vector
+    (opt_data: host float32 for scipy, a tensor on the model's device for
+    the drive), which undo restores."""
 
     def __init__(self, model, *, opt_functor: ScaleBiasOptimizer,
-                 optimize_after_n_clicks=1, **kwargs):
+                 optimize_after_n_clicks=1, host_lbfgs: bool = False, **kwargs):
         super().__init__(model, **kwargs)
         self.opt_functor = opt_functor
         self.optimize_after_n_clicks = optimize_after_n_clicks
+        self.host_lbfgs = host_lbfgs
         self.opt_data = None
 
     def set_input_image(self, image):
@@ -209,12 +234,36 @@ class _BRSPredictor(Predictor):
 
     def get_states(self):
         states = super().get_states()
-        states["opt_data"] = None if self.opt_data is None else self.opt_data.copy()
+        v = self.opt_data
+        states["opt_data"] = None if v is None else (
+            v.clone() if isinstance(v, torch.Tensor) else v.copy())
         return states
 
     def set_states(self, states):
         super().set_states(states)
         self.opt_data = states.get("opt_data")
+
+    def _zero_opt_data(self, n: int):
+        """opt_data set to zeros [n] on the driver's side, unless it already
+        has n entries."""
+        if self.opt_data is None or self.opt_data.shape[0] != n:
+            self.opt_data = (np.zeros((n,), np.float32) if self.host_lbfgs
+                             else torch.zeros(n, device=self.device))
+
+    def _opt_tensor(self) -> torch.Tensor:
+        return torch.as_tensor(self.opt_data, device=self.device)
+
+    def _drive(self, objective, hp, wp):
+        """The device drive from opt_data over objective; keeps its end point and
+        returns the best evaluation's logits [B, 1, Hp, Wp], upsampled once
+        from the low resolution."""
+        f = self.opt_functor
+        f.drive_info = {}
+        self.opt_data, best_low, f.n_evals = lbfgs_drive(
+            _drive_objective(objective), self._opt_tensor(),
+            maxfun=int(f.optimizer_params.get("maxfun", 20)), thresh=f.prob_thresh,
+            min_iou_diff=f.min_iou_diff, info=f.drive_info)
+        return bilinear_resize_align_corners(best_low[:, None], hp, wp)
 
     def _optimise(self, objective):
         """Run scipy's L-BFGS from opt_data over objective; keeps its end
@@ -258,13 +307,14 @@ class HRNetFeatureBRSPredictor(_BRSPredictor):
                                               self.insertion_mode), reg
 
     def objective(self, pos, neg, out_h, out_w, w, bs):
-        """x -> (loss + regulariser, logits [B, Hp, Wp], f_max_pos,
-        f_max_neg) (brs_functors ScaleBias + BRSMaskLoss)."""
+        """x -> (loss + regulariser, low-resolution logits [B, 1, h, w],
+        logits [B, Hp, Wp], f_max_pos, f_max_neg) (brs_functors ScaleBias +
+        BRSMaskLoss)."""
         def fn(x):
             low, reg = self._head_low(x, bs)
             loss, logits, fmp, fmn = _consistency(self.opt_functor, low, pos, neg,
                                                   out_h, out_w, w)
-            return loss + reg, logits, fmp, fmn
+            return loss + reg, low, logits, fmp, fmn
 
         return fn
 
@@ -274,13 +324,15 @@ class HRNetFeatureBRSPredictor(_BRSPredictor):
         num_clicks = len(clicks_lists[0])
         b, _, h, w = image_nd.shape
         bs = b // 2 if self.with_flip else b
-        if self.opt_data is None or self.opt_data.shape[0] != bs * 2 * self.num_channels:
-            self.opt_data = np.zeros((bs * 2 * self.num_channels,), np.float32)
+        self._zero_opt_data(bs * 2 * self.num_channels)
         hp, wp = pad_hw(h, w)
         if num_clicks <= (self.net_clicks_limit or 1 << 30) or self.input_data is None:
             self.input_data = self.model.get_head_input(
                 pad_to(image_nd, hp, wp), points_nd, self.insertion_mode)
 
+        if num_clicks > self.optimize_after_n_clicks and not self.host_lbfgs:
+            pos, neg = click_maps_from_points(map_points(clicks_lists, self.device), hp, wp)
+            return self._drive(self.objective(pos, neg, hp, wp, w, bs), hp, wp)[:, :, :h, :w]
         if num_clicks > self.optimize_after_n_clicks:
             pos, neg = padded_click_maps(clicks_lists, h, w, hp, wp, self.device)
             best = self._optimise(self.objective(pos, neg, hp, wp, w, bs))
@@ -288,7 +340,7 @@ class HRNetFeatureBRSPredictor(_BRSPredictor):
                 return best[:, None, :h, :w]
 
         # not optimising (the first click, or undone below the threshold)
-        low, _ = self._head_low(torch.from_numpy(self.opt_data).to(self.device), bs)
+        low, _ = self._head_low(self._opt_tensor(), bs)
         return bilinear_resize_align_corners(low, hp, wp)[:, :, :h, :w]
 
 
@@ -304,6 +356,8 @@ class InputBRSPredictor(_BRSPredictor):
         self.num_channels = 3 if optimize_target == "rgb" else 2
 
     def objective(self, img, points, pos, neg, h, w, bs):
+        """x -> (loss + regulariser, low-resolution logits, logits [B, Hp,
+        Wp], f_max_pos, f_max_neg)."""
         hp, wp = img.shape[-2:]
 
         def fn(x):
@@ -311,7 +365,7 @@ class InputBRSPredictor(_BRSPredictor):
             low = self.model.low_res_instances_with_input_bias(
                 img, points, pad_to(bias, hp, wp), self.optimize_target)
             loss, logits, fmp, fmn = _consistency(self.opt_functor, low, pos, neg, hp, wp, w)
-            return loss + reg, logits, fmp, fmn
+            return loss + reg, low, logits, fmp, fmn
 
         return fn
 
@@ -321,13 +375,16 @@ class InputBRSPredictor(_BRSPredictor):
         num_clicks = len(clicks_lists[0])
         b, _, h, w = image_nd.shape
         bs = b // 2 if self.with_flip else b
-        n_opt = bs * self.num_channels * h * w
-        if self.opt_data is None or self.opt_data.shape[0] != n_opt:
-            self.opt_data = np.zeros((n_opt,), np.float32)
+        self._zero_opt_data(bs * self.num_channels * h * w)
         hp, wp = pad_hw(h, w)
+        img = pad_to(image_nd, hp, wp)
+        if num_clicks > self.optimize_after_n_clicks and not self.host_lbfgs:
+            pos, neg = click_maps_from_points(map_points(clicks_lists, self.device), hp, wp)
+            return self._drive(self.objective(img, points_nd, pos, neg, h, w, bs),
+                               hp, wp)[:, :, :h, :w]
         pos, neg = padded_click_maps(clicks_lists, h, w, hp, wp, self.device)
-        objective = self.objective(pad_to(image_nd, hp, wp), points_nd, pos, neg, h, w, bs)
+        objective = self.objective(img, points_nd, pos, neg, h, w, bs)
         best = self._optimise(objective) if num_clicks > self.optimize_after_n_clicks else None
         if best is None:
-            best = objective(torch.from_numpy(self.opt_data).to(self.device))[1]
+            best = objective(self._opt_tensor())[2]
         return best[:, None, :h, :w]

@@ -77,6 +77,8 @@ class ClickController:
     """The GUI's click controller (gui/click_controller.py) with its
     predictor parameters: f-BRS-B, net_clicks_limit 8, max_size 800, flip,
     zoom-in to 480 at expansion 1.4, min_iou_diff 1e-3, L-BFGS maxfun 20.
+    The BRS modes optimise with the device drive (ritm/lbfgs.py, cutie_tpu's
+    default); host_lbfgs=True takes scipy's L-BFGS on the host instead.
 
     amp (bf16 convolutions, fp32 logits and loss) defaults to on for the
     card and off for the CPU, as cutie_tpu's defaults to bf16 on
@@ -84,7 +86,7 @@ class ClickController:
 
     def __init__(self, checkpoint_path: Optional[str], max_size: int = 800,
                  brs_mode: str = "f-BRS-B", amp: Optional[bool] = None,
-                 device="cuda"):
+                 device="cuda", host_lbfgs: bool = False):
         device = check_device(device)
         if amp is None:
             amp = device.type == "cuda"
@@ -100,6 +102,8 @@ class ClickController:
             "brs_opt_func_params": {"min_iou_diff": 1e-3},
             "lbfgs_params": {"maxfun": 20},
         }
+        if brs_mode != "NoBRS":
+            predictor_params["predictor_params"] = {"host_lbfgs": host_lbfgs}
         self.controller = InteractiveController(self.model, predictor_params)
         self.anchored = False
 

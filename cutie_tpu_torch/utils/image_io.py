@@ -394,35 +394,50 @@ def encode_ppm(rgb: np.ndarray) -> bytes:
 
 # ------------------------------------------------------------------- resizes
 
-def _bilinear_coefficients(in_size: int, out_size: int):
-    """Pillow's precompute_coeffs (Resample.c) for the triangle filter,
-    then normalize_coeffs_8bpc: per output index its first input index,
-    and [out, taps] coefficients fixed to 22 fractional bits."""
+def _triangle(x: np.ndarray) -> np.ndarray:
+    """Pillow's bilinear_filter (Resample.c), support 1."""
+    return np.maximum(1.0 - np.abs(x), 0.0)
+
+
+def _bicubic(x: np.ndarray) -> np.ndarray:
+    """Pillow's bicubic_filter (Resample.c): the cubic convolution kernel
+    with a = -0.5, support 2, in its order of operations."""
+    a = -0.5
+    x = np.abs(x)
+    return np.where(x < 1.0, ((a + 2.0) * x - (a + 3.0)) * x * x + 1,
+                    np.where(x < 2.0, (((x - 5) * x + 8) * x - 4) * a, 0.0))
+
+
+def _filter_coefficients(in_size: int, out_size: int, kernel, support: float):
+    """Pillow's precompute_coeffs (Resample.c) for `kernel` of half-width
+    `support`, then normalize_coeffs_8bpc: per output index its first input
+    index, and [out, taps] coefficients fixed to 22 fractional bits
+    (rounded half away from zero)."""
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
-    support = 1.0 * filterscale
+    support = support * filterscale
     taps = int(math.ceil(support)) * 2 + 1
     center = (np.arange(out_size) + 0.5) * scale
     xmin = np.maximum(np.trunc(center - support + 0.5), 0).astype(np.int64)
     xmax = np.minimum(np.trunc(center + support + 0.5), in_size).astype(np.int64)
     count = xmax - xmin
     j = np.arange(taps)[None, :]
-    w = np.maximum(1.0 - np.abs((j + xmin[:, None] - center[:, None] + 0.5)
-                                * (1.0 / filterscale)), 0.0)
+    w = kernel((j + xmin[:, None] - center[:, None] + 0.5) * (1.0 / filterscale))
     w = np.where(j < count[:, None], w, 0.0)
     total = np.zeros(out_size)
     for t in range(taps):   # in C's order: the sum is sequential
         total = total + w[:, t]
     w = np.where(total[:, None] != 0.0, w / np.where(total == 0, 1, total)[:, None], w)
-    fixed = np.trunc(0.5 + w * (1 << 22)).astype(np.int64)
+    fixed = np.trunc(np.where(w < 0, -0.5, 0.5) + w * (1 << 22)).astype(np.int64)
     return xmin, fixed
 
 
-def _bilinear_pass(img: np.ndarray, axis: int, out_size: int) -> np.ndarray:
+def _resample_pass(img: np.ndarray, axis: int, out_size: int, kernel,
+                   support: float) -> np.ndarray:
     """One of Pillow's two 8-bit passes along `axis`: each output the
     fixed-point sum of its taps, rounded (+2^21 >> 22) and clipped."""
     in_size = img.shape[axis]
-    xmin, fixed = _bilinear_coefficients(in_size, out_size)
+    xmin, fixed = _filter_coefficients(in_size, out_size, kernel, support)
     src = np.moveaxis(img, axis, 0).astype(np.int64)
     acc = np.full((out_size,) + src.shape[1:], 1 << 21, np.int64)
     shape = (out_size,) + (1,) * (src.ndim - 1)
@@ -433,16 +448,28 @@ def _bilinear_pass(img: np.ndarray, axis: int, out_size: int) -> np.ndarray:
     return np.moveaxis(out, 0, axis)
 
 
-def resize_bilinear(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
-    """Image.resize((out_w, out_h), Image.BILINEAR) of [H, W] or [H, W, C]
-    uint8, bit for bit: a horizontal pass, then a vertical one, each only
-    where that size changes."""
+def _resample(img: np.ndarray, out_h: int, out_w: int, kernel, support: float
+              ) -> np.ndarray:
+    """Pillow's ImagingResample of [H, W] or [H, W, C] uint8: a horizontal
+    pass, then a vertical one, each only where that size changes."""
     img = np.asarray(img, np.uint8)
     if img.shape[1] != out_w:
-        img = _bilinear_pass(img, 1, out_w)
+        img = _resample_pass(img, 1, out_w, kernel, support)
     if img.shape[0] != out_h:
-        img = _bilinear_pass(img, 0, out_h)
+        img = _resample_pass(img, 0, out_h, kernel, support)
     return img
+
+
+def resize_bilinear(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """Image.resize((out_w, out_h), Image.BILINEAR) of [H, W] or [H, W, C]
+    uint8, bit for bit."""
+    return _resample(img, out_h, out_w, _triangle, 1.0)
+
+
+def resize_bicubic(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """Image.resize((out_w, out_h), Image.BICUBIC), Pillow's default filter
+    for RGB and L, of [H, W] or [H, W, C] uint8, bit for bit."""
+    return _resample(img, out_h, out_w, _bicubic, 2.0)
 
 
 def _nearest_index(in_size: int, out_size: int) -> np.ndarray:

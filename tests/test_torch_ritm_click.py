@@ -2,11 +2,15 @@
 the CPU against cutie_tpu's: the automatic next click (scipy's EDT where
 cutie_tpu calls cv2.distanceTransform), the transforms, the NoBRS
 InteractiveController with undo and finish, one f-BRS objective and
-gradient, the f-BRS-B endpoint against cutie_tpu's host L-BFGS path, and
-the other BRS modes running to a finite result.
+gradient, the f-BRS-B endpoint of the port's scipy path (host_lbfgs=True)
+against cutie_tpu's, the port's default driver (ritm/lbfgs.py, the device
+drive) against both host paths, its undo and ClickController's default,
+and the other BRS modes running to a finite result with either driver.
 
 One cutie_tpu model serves the file (its compiled functions are cached by
-model). No test reaches cutie_tpu's on-device L-BFGS (device_lbfgs_drive).
+model). Only the slow test compiles cutie_tpu's device_lbfgs_drive over
+the RITM model (tests/test_torch_lbfgs.py holds the drive to it on small
+objectives).
 
 Tolerances: distance transforms to one ulp of cv2's, and clicks exactly
 but where cv2's rounding breaks an exact tie (test_edt_click_matches_cv2);
@@ -69,11 +73,10 @@ def _controllers(models, params, host_lbfgs=False):
     from cutie_tpu.ritm.inference import InteractiveController as FlaxController
 
     port, flax_model, variables = models
-    theirs_params = dict(params)
     if host_lbfgs:
-        theirs_params["predictor_params"] = {"host_lbfgs": True}
+        params = {**params, "predictor_params": {"host_lbfgs": True}}
     return (inference.InteractiveController(port, params),
-            FlaxController(flax_model, variables, theirs_params))
+            FlaxController(flax_model, variables, params))
 
 
 def _blob(rng, h, w):
@@ -218,6 +221,15 @@ def test_nobrs_controller_flow_matches_cutie_tpu(models):
     assert ours.result_mask.max() == 1
 
 
+def _fbrs_image():
+    return np.random.default_rng(7).uniform(0.2, 0.8, size=(3, 64, 96)).astype(np.float32)
+
+
+def _mask_iou(a, b):
+    a, b = a[0, 0] > 0.5, b[0, 0] > 0.5
+    return np.logical_and(a, b).sum() / np.logical_or(a, b).sum()
+
+
 @pytest.fixture(scope="module")
 def fbrs_runs(models):
     """tests/test_ritm.py::test_device_brs_matches_host_endpoint's clicks
@@ -225,7 +237,7 @@ def fbrs_runs(models):
     a click, then a positive click where the first prediction is least
     foreground, so that the optimiser must engage."""
     ours, theirs = _controllers(models, FBRS, host_lbfgs=True)
-    image = np.random.default_rng(7).uniform(0.2, 0.8, size=(3, 64, 96)).astype(np.float32)
+    image = _fbrs_image()
     ours.set_image(image)
     theirs.set_image(image)
     p1 = ours.add_click(30, 20, True), theirs.add_click(30, 20, True)
@@ -246,6 +258,84 @@ def test_fbrs_endpoint_matches_host_lbfgs(fbrs_runs):
     assert iou >= 0.99, iou
     np.testing.assert_allclose(ours.predictor.opt_data, np.asarray(theirs.predictor.opt_data),
                                atol=1e-3)
+
+
+@pytest.fixture(scope="module")
+def fbrs_device_run(models, fbrs_runs):
+    """fbrs_runs' clicks through the port's default driver, the device
+    drive (ritm/lbfgs.py)."""
+    *_, (yy, xx) = fbrs_runs
+    ctl = inference.InteractiveController(models[0], FBRS)
+    ctl.set_image(_fbrs_image())
+    q1 = ctl.add_click(30, 20, True)
+    q2 = ctl.add_click(int(xx), int(yy), True)
+    return ctl, q1, q2
+
+
+def test_device_drive_endpoint_matches_host_paths(fbrs_runs, fbrs_device_run):
+    """The default f-BRS-B click (the device drive) against the port's and
+    cutie_tpu's host L-BFGS paths on the same clicks: the first click (no
+    optimisation) equal, the optimiser engaged on the second, the forced
+    click's probability raised, and the masks within the bar that
+    tests/test_ritm.py::test_device_brs_matches_host_endpoint sets between
+    cutie_tpu's two drivers: IoU > 0.8 (measured 1.0 against both). The
+    budget: fewer than maxfun evaluations before the last line search."""
+    ours_host, _, p1, p2, (yy, xx) = fbrs_runs
+    ctl, q1, q2 = fbrs_device_run
+    np.testing.assert_array_equal(q1, p1[0])
+    pred = ctl.predictor
+    info = pred.opt_functor.drive_info
+    assert not pred.host_lbfgs and ours_host.predictor.host_lbfgs
+    assert isinstance(pred.opt_data, torch.Tensor) and float(pred.opt_data.norm()) > 0
+    assert info["iterations"] >= 1 and pred.opt_functor.n_evals >= 1
+    maxfun = FBRS["lbfgs_params"]["maxfun"]
+    assert pred.opt_functor.n_evals - info["linesearch_steps"][-1] < maxfun
+    assert q2[0, 0, yy, xx] > q1[0, 0, yy, xx]
+    assert _mask_iou(q2, p2[0]) > 0.8, _mask_iou(q2, p2[0])
+    assert _mask_iou(q2, p2[1]) > 0.8, _mask_iou(q2, p2[1])
+
+
+def test_undo_restores_device_opt_data(models):
+    """The device drive keeps opt_data a tensor on the model's device; undo
+    restores the vector of the click before, a copy that the next drive
+    does not touch, and a click after the undo starts from it."""
+    ctl = inference.InteractiveController(models[0], {**FBRS, "lbfgs_params": {"maxfun": 4}})
+    ctl.set_image(_fbrs_image())
+    ctl.add_click(30, 20, True)
+    ctl.add_click(70, 40, False)
+    after2 = ctl.predictor.opt_data
+    kept = after2.clone()
+    p3 = ctl.add_click(10, 50, True)
+    assert not torch.equal(ctl.predictor.opt_data, kept)
+    ctl.undo_click()
+    assert isinstance(ctl.predictor.opt_data, torch.Tensor)
+    assert torch.equal(ctl.predictor.opt_data, kept) and torch.equal(after2, kept)
+    assert ctl.predictor.opt_data is not after2
+    np.testing.assert_array_equal(ctl.add_click(10, 50, True), p3)
+
+
+@pytest.mark.slow
+def test_device_drive_matches_cutie_tpu_device_drive(models, fbrs_device_run):
+    """The port's device drive against cutie_tpu's device_lbfgs_drive (its
+    default path) on fbrs_runs' clicks, through both InteractiveControllers.
+    Compiling cutie_tpu's drive over the RITM model takes minutes, so the
+    test is marked slow. Both run the same L-BFGS in fp32 on features that
+    differ by float rounding: measured, the probabilities within 1.2e-7 and
+    the scale/bias vectors within 3.6e-7 (required: 1e-5), masks equal."""
+    from cutie_tpu.ritm.inference import InteractiveController as FlaxController
+
+    _, flax_model, variables = models
+    ctl, q1, q2 = fbrs_device_run
+    theirs = FlaxController(flax_model, variables, FBRS)
+    theirs.set_image(_fbrs_image())
+    t1 = theirs.add_click(30, 20, True)
+    yy, xx = np.unravel_index(np.argmin(t1[0, 0]), t1.shape[2:])
+    t2 = theirs.add_click(int(xx), int(yy), True)
+    np.testing.assert_allclose(q1, t1, atol=1e-5)
+    assert _mask_iou(q2, t2) == 1.0, _mask_iou(q2, t2)
+    np.testing.assert_allclose(q2, t2, atol=1e-5)
+    np.testing.assert_allclose(ctl.predictor.opt_data.numpy(),
+                               np.asarray(theirs.predictor.opt_data), atol=1e-5)
 
 
 def test_fbrs_objective_and_gradient_match_cutie_tpu(fbrs_runs):
@@ -284,14 +374,20 @@ def test_fbrs_objective_and_gradient_match_cutie_tpu(fbrs_runs):
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("mode", ["f-BRS-C", "RGB-BRS", "DistMap-BRS"])
-def test_other_brs_modes_run_finite(models, mode):
-    """f-BRS-C and the input-BRS pair on the port (cutie_tpu's tests run
-    them only through its on-device L-BFGS): the second click optimises and
-    gives finite probabilities in [0, 1] that keep the negative click
-    background, as tests/test_ritm.py::test_brs_mode_variants asks."""
+@pytest.mark.parametrize("mode,host_lbfgs", [
+    pytest.param(mode, host, id=mode + ("" if host else "-device_drive"))
+    for mode in ("f-BRS-C", "RGB-BRS", "DistMap-BRS") for host in (True, False)])
+def test_other_brs_modes_run_finite(models, mode, host_lbfgs):
+    """f-BRS-C and the input-BRS pair on the port with each driver (scipy
+    on the host; the device drive, the default), where cutie_tpu's tests run
+    them only through its on-device L-BFGS: the second click gives finite
+    probabilities in [0, 1] that keep the negative click background, as
+    tests/test_ritm.py::test_brs_mode_variants asks; a third, positive click
+    where the second prediction is least foreground engages the optimiser
+    and raises the probability there."""
     ctl = inference.InteractiveController(models[0], {
         "brs_mode": mode, "with_flip": True, "zoom_in_params": ZOOM,
+        "predictor_params": {"host_lbfgs": host_lbfgs},
         "brs_opt_func_params": {"min_iou_diff": 1e-3}, "lbfgs_params": {"maxfun": 3}})
     image = np.random.default_rng(3).uniform(0.2, 0.8, size=(3, 64, 96)).astype(np.float32)
     ctl.set_image(image)
@@ -299,8 +395,17 @@ def test_other_brs_modes_run_finite(models, mode):
     p2 = ctl.add_click(20, 10, False)
     assert p2.shape == (1, 1, 64, 96) and np.all(np.isfinite(p2))
     assert 0.0 <= p2.min() and p2.max() <= 1.0
-    assert ctl.predictor.opt_data is not None and ctl.predictor.opt_functor.n_evals >= 1
+    functor = ctl.predictor.opt_functor
+    assert ctl.predictor.opt_data is not None
+    # scipy evaluates at least once; the device drive, as cutie_tpu's, not
+    # at all when the clicks already hold at its starting point
+    assert functor.n_evals >= 1 if host_lbfgs else functor.drive_info is not None
     assert p2[0, 0, 10, 20] < 0.9
+    yy, xx = np.unravel_index(np.argmin(p2[0, 0]), p2.shape[2:])
+    p3 = ctl.add_click(int(xx), int(yy), True)
+    assert np.all(np.isfinite(p3)) and 0.0 <= p3.min() and p3.max() <= 1.0
+    assert functor.n_evals >= 1
+    assert p3[0, 0, yy, xx] > p2[0, 0, yy, xx]
 
 
 def test_click_controller_on_the_cpu():
@@ -310,6 +415,7 @@ def test_click_controller_on_the_cpu():
     ctl = ClickController(None, device="cpu")
     assert not ctl.model.amp and ctl.controller.predictor.opt_functor.optimizer_params[
         "maxfun"] == 20
+    assert not ctl.controller.predictor.host_lbfgs
     image = np.random.default_rng(5).uniform(0, 1, size=(3, 72, 100)).astype(np.float32)
     p1 = ctl.interact(image, 50, 36, True)
     p2 = ctl.interact(image, 20, 10, False)
@@ -317,6 +423,18 @@ def test_click_controller_on_the_cpu():
     for p in (p1, p2, p3):
         assert p.shape == (1, 1, 72, 100) and np.all(np.isfinite(p))
         assert 0.0 <= p.min() and p.max() <= 1.0
+    assert isinstance(ctl.controller.predictor.opt_data, torch.Tensor)
+    assert ctl.controller.predictor.opt_functor.drive_info is not None
     undone = ctl.undo()
     np.testing.assert_array_equal(undone, (p2 > 0.5).astype(np.float32))
     assert len(ctl.controller.clicker) == 2
+
+
+def test_click_controller_driver_choice():
+    """ClickController runs the device drive by default, as cutie_tpu's
+    does, and scipy's L-BFGS with host_lbfgs=True; NoBRS has no driver."""
+    assert not ClickController(None, device="cpu").controller.predictor.host_lbfgs
+    assert ClickController(None, device="cpu",
+                           host_lbfgs=True).controller.predictor.host_lbfgs
+    assert not hasattr(ClickController(None, brs_mode="NoBRS", device="cpu")
+                       .controller.predictor, "host_lbfgs")
