@@ -56,6 +56,19 @@ Phases, each printing one JSON line with its wall seconds:
              merge_multi_scale over the score dump;
   eval_lt    the same over the long-term golden's 26 frames with the
              generic preset, whose get_dataset_cfg turns long-term mode on;
+  formats    the image files cutie_tpu reads through Pillow, read without it:
+             (a) every progressive JPEG fixture (the decoder matrix's twin,
+             the 12 frames of vos_progressive/) and the PNGs of other modes
+             (Adam7, 16-bit, tRNS, a 480x854 RGB mask) against the hashes of
+             Pillow's decode and conversions in manifest.json, and ms to
+             read a 480x854 frame, progressive beside baseline; (b) eval_vos
+             (d17-val) over synth_a as committed and over its progressive /
+             Adam7 twin, twice each in turns: frames bit-equal, saved masks
+             at agreement >= 0.9999 and the IoU bars, kernel #1 launched
+             once a frame after the first in each run; (c) the four
+             scripts/data tools as subprocesses, their outputs against the
+             reference scripts' (tests/torch_fixtures/
+             scripts_data_expected.json);
   scripting  python -m cutie_tpu_torch.scripting_demo_add_del_objects in a
              subprocess on the default device: objects [1] -> [1, 2] -> [2]
              across t = 4 and t = 10, a mask for every frame;
@@ -75,10 +88,11 @@ Phases, each printing one JSON line with its wall seconds:
              for the backward, ms); neither read kernel is launched;
   train_entry  the two-stage train entry (train.py:run_stage) on the
              committed JPEG/PNG fixtures (tests/torch_fixtures/): every
-             JPEG decoded without Pillow against the SHA-256 of Pillow's
-             decode, ms to read a 480x854 frame; the loader alone at main
-             training's batch of 16 (frames a second); pre-training, the
-             hand-off, main training with a curriculum rebuild of the loader,
+             JPEG, baseline and progressive, decoded without Pillow against
+             the SHA-256 of Pillow's decode, ms to read a 480x854 frame; the
+             loader alone at main training's batch of 16 (frames a second);
+             pre-training, the hand-off, main training with a curriculum
+             rebuild of the loader,
              and a resume from its checkpoint at the right it, epoch and
              max_skip; ms a step with the loader feeding it against phase
              train's in-memory step, and the loader's wait a step; neither
@@ -150,6 +164,7 @@ import importlib.util
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -187,7 +202,8 @@ from cutie_tpu_torch.utils.get_default_model import (apply_object_surgery, build
                                                      set_fp32_precision)
 from cutie_tpu_torch.utils import host_build
 from cutie_tpu_torch.utils.image_io import (JPEG_ENCODE_SOURCE, decode_jpeg, encode_jpeg,
-                                            read_image, read_jpeg, read_png, write_png)
+                                            read_any, read_image, read_jpeg, read_mask,
+                                            read_png, read_rgba, write_png)
 from cutie_tpu_torch.utils.logger import TensorboardLogger
 from cutie_tpu_torch.utils.palette import davis_palette
 from cutie_tpu_torch.utils.synth_video import synth_frames_480, synth_gt_masks_480
@@ -1126,6 +1142,227 @@ def phase_eval_lt(lt):
                          long_term=True)
 
 
+# ------------------------------------------------------------- formats
+
+VOS_TWIN = FIXTURES / "vos_progressive"   # synth_a: progressive JPEG, Adam7 first mask
+# what the reference scripts/data/*.py give on scripts_data_tree (written
+# with them by tests/test_torch_jpeg.py:write_fixtures; the tools' CPU test
+# holds the port's tools to them and to this file)
+SCRIPTS_DATA_EXPECTED = FIXTURES / "scripts_data_expected.json"
+FORMATS_AGREEMENT_MIN = 0.9999
+
+
+def sha256_of(pixels):
+    return hashlib.sha256(np.ascontiguousarray(pixels).tobytes()).hexdigest()
+
+
+def is_new_format(rel):
+    """The manifest's fixtures that the formats phase decodes: progressive
+    JPEGs, the progressive VOS twin and the PNGs of other modes."""
+    return "progressive" in rel or rel.startswith("png/")
+
+
+def check_fixture(rel, entry):
+    """One manifest fixture through the port's readers (no Pillow): the
+    decode, and for a PNG its mode, dtype and conversions, against the
+    hashes of Pillow's. Returns the list of what differs."""
+    path = str(FIXTURES / rel)
+    if rel.endswith(".jpg"):
+        pixels, mode = read_jpeg(path)
+    else:
+        pixels, mode, _ = read_any(path)
+    bad = []
+    if list(pixels.shape) != entry["shape"] or sha256_of(pixels) != entry["sha256"]:
+        bad.append(rel)
+    if "mode" in entry and (mode, str(pixels.dtype)) != (entry["mode"], entry["dtype"]):
+        bad.append(f"{rel}: mode {mode} {pixels.dtype}")
+    readers = {"RGB": read_image, "RGBA": read_rgba,
+               "L": lambda p: read_mask(p, "L"), "P": lambda p: read_mask(p, "P")}
+    for target, sha in entry.get("convert", {}).items():
+        if sha256_of(readers[target](path)) != sha:
+            bad.append(f"{rel}: convert({target!r})")
+    return bad
+
+
+def read_ms(frame, iters=20):
+    read_image(frame)
+    t1 = time.perf_counter()
+    for _ in range(iters):
+        read_image(frame)
+    return 1e3 * (time.perf_counter() - t1) / iters
+
+
+def scripts_data_tree(root):
+    """A copy of the VOS fixture at root/vos for the scripts/data tools,
+    edited so that each has something to find: synth_a's first mask keeps
+    object 1 only (objects 2 and 3 first appear in frame 1), synth_b's
+    masks are grayscale PNGs with frames 3-5 empty, synth_c's first mask is
+    empty, and synth_empty has an annotation directory without masks."""
+    vos = Path(root) / "vos"
+    shutil.copytree(FIXTURES / "vos", vos)
+    ann = vos / "Annotations"
+    mask, _, palette = read_png(str(ann / "synth_a" / "00000.png"))
+    write_png(str(ann / "synth_a" / "00000.png"), np.where(mask == 1, mask, 0), palette)
+    for f in sorted((ann / "synth_b").iterdir()):
+        mask = read_png(str(f))[0]
+        write_png(str(f), mask * np.uint8(not 3 <= int(f.stem) <= 5))
+    mask, _, palette = read_png(str(ann / "synth_c" / "00000.png"))
+    write_png(str(ann / "synth_c" / "00000.png"), np.zeros_like(mask), palette)
+    (ann / "synth_empty").mkdir()
+    return vos
+
+
+def scripts_data_args(vos, out):
+    """Each tool's command-line arguments over the tree, writing under out."""
+    return {"expand_long_vid": [str(vos), str(out / "expanded"), "2"],
+            "find_empty_mask": [str(vos / "Annotations"), str(out / "empty_masks.json")],
+            "find_empty_video": [str(vos / "Annotations")],
+            "preprocess_lvos": [str(vos / "Annotations"), str(out / "lvos")]}
+
+
+def scripts_data_summary(out, empty_video_stdout):
+    """What the tools wrote under out: the expanded tree's files and the
+    SHA-256 of their bytes, the empty-mask JSON, the empty videos printed,
+    and each preprocessed mask's mode, shape and decoded pixels' and
+    palette's SHA-256."""
+    expanded = {f.relative_to(out / "expanded").as_posix():
+                hashlib.sha256(f.read_bytes()).hexdigest()
+                for f in sorted((out / "expanded").rglob("*")) if f.is_file()}
+    lvos = {}
+    for f in sorted((out / "lvos").rglob("*")):
+        if f.is_file():
+            pixels, mode, palette = read_png(str(f))
+            lvos[f.relative_to(out / "lvos").as_posix()] = {
+                "mode": mode, "shape": list(pixels.shape), "sha256": sha256_of(pixels),
+                "palette_sha256": (None if palette is None
+                                   else sha256_of(np.asarray(palette, np.uint8)))}
+    return {"expand_long_vid": expanded,
+            "find_empty_mask": json.loads((out / "empty_masks.json").read_text()),
+            "find_empty_video": empty_video_stdout.splitlines(),
+            "lvos_dirs": sorted(d.name for d in (out / "lvos").iterdir()),
+            "preprocess_lvos": lvos}
+
+
+def run_scripts_data(vos, out, command):
+    """Every tool in a subprocess (command(tool) + its arguments), from the
+    repository root; raises if one fails. Returns scripts_data_summary."""
+    out.mkdir(parents=True, exist_ok=True)
+    stdout = {}
+    for tool, args in scripts_data_args(vos, out).items():
+        res = subprocess.run([*command(tool), *args], cwd=REPO, capture_output=True,
+                             text=True, timeout=300)
+        if res.returncode != 0:
+            raise RuntimeError(f"{tool} exited {res.returncode}: {res.stderr[-2000:]}")
+        stdout[tool] = res.stdout
+    return scripts_data_summary(out, stdout["find_empty_video"])
+
+
+def formats_eval(image_dir, mask_dir, out):
+    """eval_vos (d17-val, cutie-base, the trained test weights) over one
+    video directory: its saved masks, kernel #1's launches, and the
+    harness's stats."""
+    cfg = eval_config("base")
+    cfg.merge({"dataset": "d17-val", "output_dir": str(out),
+               "weights": str(TRAINED_WEIGHTS), "image_directory": str(image_dir),
+               "mask_directory": str(mask_dir)})
+    read_kernel.radix_topk_readout.launches = 0
+    read_kernel.fused_topk_readout.launches = 0
+    stats = eval_vos(cfg)
+    launches = {"radix_topk_readout": read_kernel.radix_topk_readout.launches,
+                "fused_topk_readout": read_kernel.fused_topk_readout.launches}
+    saved = [read_png(str(f))[0] for f in sorted((out / "Annotations" / "synth_a").iterdir())]
+    return saved, launches, stats
+
+
+def phase_formats():
+    """The image files cutie_tpu reads through Pillow, on the card's
+    machine without Pillow: (a) every progressive JPEG and other-mode PNG
+    fixture against the hashes of Pillow's decode and conversions in
+    manifest.json, and ms to read a 480x854 frame, progressive beside
+    baseline; (b) eval_vos over synth_a as committed (baseline JPEG, the
+    palette PNG) and over its progressive / Adam7 twin, twice each in
+    turns: frames decoded bit-equal, the saved masks of every later run at
+    pixel agreement >= FORMATS_AGREEMENT_MIN and the stream phases' IoU
+    bars against the first run's, kernel #1 launched once a frame after the
+    first in each run; (c) the four scripts/data tools as
+    subprocesses over scripts_data_tree, their outputs against
+    scripts_data_expected.json."""
+    t0 = time.perf_counter()
+    manifest = json.loads((FIXTURES / "manifest.json").read_text())
+    new = sorted(rel for rel in manifest if is_new_format(rel))
+    mismatched = [bad for rel in new for bad in check_fixture(rel, manifest[rel])]
+    base_dir = FIXTURES / "vos" / "JPEGImages" / "synth_a"
+    twin_dir = VOS_TWIN / "JPEGImages" / "synth_a"
+    frames = sorted(f.name for f in base_dir.iterdir())
+    frames_equal = sorted(f.name for f in twin_dir.iterdir()) == frames and all(
+        np.array_equal(read_image(str(base_dir / f)), read_image(str(twin_dir / f)))
+        for f in frames)
+    times = {"baseline": [], "progressive": []}
+    for _ in range(2):   # interleaved, twice each
+        times["baseline"].append(read_ms(str(base_dir / frames[0])))
+        times["progressive"].append(read_ms(str(twin_dir / frames[0])))
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        ann = tmp / "base" / "Annotations" / "synth_a"
+        ann.mkdir(parents=True)
+        shutil.copytree(base_dir, tmp / "base" / "JPEGImages" / "synth_a")
+        shutil.copy(FIXTURES / "vos" / "Annotations" / "synth_a" / "00000.png", ann)
+        # in turns, baseline, twin, twin, baseline: the first run of a
+        # process also loads the card's kernels
+        for i, name in enumerate(("baseline", "progressive", "progressive", "baseline")):
+            root = tmp / "base" if name == "baseline" else VOS_TWIN
+            t1 = time.perf_counter()
+            saved, launches, stats = formats_eval(root / "JPEGImages", root / "Annotations",
+                                                  tmp / f"out_{i}")
+            runs[f"{name}_{i}"] = {"saved": saved, "launches": launches,
+                                   "harness_fps": stats["fps"],
+                                   "total_frames": stats["total_frames"],
+                                   "seconds": time.perf_counter() - t1}
+        vos = scripts_data_tree(tmp)
+        t1 = time.perf_counter()
+        scripts = run_scripts_data(vos, tmp / "scripts_out",
+                                   lambda tool: [sys.executable, "-m",
+                                                 f"cutie_tpu_torch.scripts.data.{tool}"])
+        scripts_seconds = time.perf_counter() - t1
+    expected = json.loads(SCRIPTS_DATA_EXPECTED.read_text())
+    scripts_ok = {k: scripts.get(k) == v for k, v in expected.items()}
+    base = runs["baseline_0"]["saved"]
+    twins = [r["saved"] for k, r in runs.items() if k != "baseline_0"]
+    agree = [float((a == b).mean()) for twin in twins for a, b in zip(twin, base)]
+    ious = np.concatenate([stream_ious(twin, base) for twin in twins])
+    gt = [read_png(str(f))[0]
+          for f in sorted((FIXTURES / "vos" / "Annotations" / "synth_a").iterdir())]
+    checks = {
+        "fixtures_match_pillow": not mismatched and len(new) > 0,
+        "frames_bit_equal": frames_equal,
+        "masks_agree": all(len(t) == len(base) == len(frames) for t in twins)
+        and min(agree) >= FORMATS_AGREEMENT_MIN,
+        "iou_bars": bool(iou_ok(ious)),
+        "launches": all(r["launches"]["radix_topk_readout"] == len(frames) - 1
+                        and r["total_frames"] == len(frames) for r in runs.values()),
+        "scripts_data": scripts == expected,
+    }
+    ok = all(checks.values())
+    emit({"phase": "formats", "fixtures": len(new), "mismatched": mismatched,
+          "read_ms_480x854": times,
+          "runs": {k: {key: v[key]
+                       for key in ("launches", "harness_fps", "total_frames", "seconds")}
+                   for k, v in runs.items()},
+          "agreement_min": min(agree), "iou_median": float(np.median(ious)),
+          "iou_min": float(ious.min()),
+          "iou_vs_annotations": {k: {"median": float(np.median(stream_ious(v["saved"], gt))),
+                                     "min": float(stream_ious(v["saved"], gt).min())}
+                                 for k, v in runs.items()},
+          "scripts_data": scripts_ok, "scripts_data_seconds": scripts_seconds,
+          "checks": checks, "nvidia_smi": nvidia_smi_line(), "ok": ok,
+          "seconds": time.perf_counter() - t0})
+    if not ok:
+        raise RuntimeError("formats phase failed")
+    return {k: sum(r["launches"][k] for r in runs.values())
+            for k in ("radix_topk_readout", "fused_topk_readout")}
+
+
 ADD_DEL_OBJECTS = {t: [1] for t in range(4)} | {t: [1, 2] for t in range(4, 10)} \
     | {t: [2] for t in range(10, 14)}
 
@@ -1459,11 +1696,12 @@ def fixture_train_cfg():
 
 
 def check_decoder():
-    """Every committed JPEG through the port's decoder: the supported ones
-    hash to the SHA-256 of Pillow's decode in tests/torch_fixtures/
-    manifest.json, the others raise. Then ms to read one 480x854 frame
+    """Every committed JPEG of tests/torch_fixtures/manifest.json, baseline
+    and progressive, through the port's decoder: the supported ones hash to
+    the SHA-256 of Pillow's decode there, the others raise. Then ms to read one 480x854 frame
     (read_image: the file read and the decode), the mean of 20."""
-    manifest = json.loads((FIXTURES / "manifest.json").read_text())
+    manifest = {rel: entry for rel, entry in json.loads(
+        (FIXTURES / "manifest.json").read_text()).items() if rel.endswith(".jpg")}
     mismatched, refused = [], []
     for rel, entry in sorted(manifest.items()):
         data = (FIXTURES / rel).read_bytes()
@@ -2623,6 +2861,7 @@ def main():
     by_path["config"] = phase_config()["launches"]
     by_path["eval"] = phase_eval(sres)
     by_path["eval_lt"] = phase_eval_lt(lres)
+    by_path["formats"] = phase_formats()
     phase_scripting()
     by_path["train"], in_memory_step_ms = phase_train()
     by_path["train_entry"] = phase_train_entry(in_memory_step_ms)

@@ -1,11 +1,22 @@
-// Baseline JPEG decoder, bit-equal to libjpeg's default decode.
+// Baseline and progressive JPEG decoder, bit-equal to libjpeg's default
+// decode.
 //
 // Host code (g++ -O3 -shared -fPIC), loaded by cutie_tpu_torch/utils/image_io.py
-// through ctypes. Supported: sequential Huffman (SOF0, SOF1), 8-bit samples,
-// 1 or 3 components, sampling 4:4:4, 4:2:2 (h2v1) and 4:2:0 (h2v2),
-// interleaved and non-interleaved scans, restart intervals. Anything else
-// (progressive, arithmetic, lossless, 12-bit, CMYK, Adobe transforms, other
-// sampling factors) is refused with a message that names it.
+// through ctypes. Supported: sequential Huffman (SOF0, SOF1) and progressive
+// Huffman (SOF2), 8-bit samples, 1 or 3 components, sampling 4:4:4, 4:2:2
+// (h2v1) and 4:2:0 (h2v2), interleaved and non-interleaved scans, restart
+// intervals. Anything else (arithmetic, lossless, hierarchical, 12-bit,
+// CMYK/YCCK, Adobe transforms, other sampling factors) is refused with a
+// message that names it.
+//
+// Every scan writes into a whole-image coefficient buffer per component, and
+// the output stage (IDCT, upsampling, colour) runs once all scans are read,
+// as libjpeg's buffered-image path does. The progressive scans follow
+// jdphuff.c: DC first and refine, AC first (with EOB runs) and AC refine
+// (correction bits on already-nonzero coefficients). libjpeg-turbo smooths
+// the blocks of a progressive image whose first coefficients are left
+// unrefined (jdcoefct.c:smoothing_ok); that smoothing is not implemented and
+// such a file is refused, naming it.
 //
 // The arithmetic follows libjpeg's defaults, which Pillow uses:
 // - the islow IDCT of jidctint.c (CONST_BITS 13, PASS1_BITS 2) and the
@@ -150,10 +161,9 @@ struct BitReader {
   }
 };
 
-// SOFn markers other than sequential Huffman (SOF0, SOF1)
+// SOFn markers other than Huffman sequential (SOF0, SOF1) and progressive (SOF2)
 [[noreturn]] void refuse_process(int marker) {
   int n = marker - 0xC0;
-  if (n == 2) fail("progressive JPEG (SOF2) is not supported");
   if (n == 3) fail("lossless JPEG (SOF3) is not supported");
   if (n >= 5 && n <= 7) fail("hierarchical JPEG (SOF%d) is not supported", n);
   fail("arithmetic-coded JPEG (SOF%d) is not supported", n);
@@ -170,7 +180,12 @@ struct Component {
   uint16_t quant[64];         // latched at the component's first scan (jdinput.c)
   bool latched = false;
   int dc_pred = 0;
+  int coef_bits[64];  // progressive: the Al of the last scan of each coefficient, -1 before
 };
+
+// jdcoefct.c:smoothing_ok looks at the first SAVED_COEFS coefficients in
+// zig-zag order (libjpeg-turbo 2.1 and later: 10)
+constexpr int kSmoothingCoefs = 10;
 
 struct Decoder {
   const uint8_t* data;
@@ -179,7 +194,8 @@ struct Decoder {
   int width = 0, height = 0, ncomp = 0;
   int hmax = 1, vmax = 1, mcus_x = 0, mcus_y = 0;
   int restart_interval = 0;
-  bool frame = false, adobe = false;
+  bool frame = false, adobe = false, progressive = false;
+  int eobrun = 0;  // progressive AC scans: blocks left in the current end-of-band run
   int adobe_transform = -1;
   uint16_t quant[4][64];
   bool quant_defined[4] = {false, false, false, false};
@@ -260,6 +276,7 @@ struct Decoder {
       c.blocks_h = mcus_y * c.v;
       c.width = static_cast<int>((static_cast<long>(width) * c.h + hmax - 1) / hmax);
       c.height = static_cast<int>((static_cast<long>(height) * c.v + vmax - 1) / vmax);
+      for (int k = 0; k < 64; k++) c.coef_bits[k] = -1;
     }
     frame = true;
   }
@@ -284,6 +301,102 @@ struct Decoder {
     }
   }
 
+  // ------------------------------------------------ progressive scans (jdphuff.c)
+
+  static int16_t shifted(int v, int al) {
+    return static_cast<int16_t>(static_cast<uint32_t>(v) << al);  // LEFT_SHIFT, then JCOEF
+  }
+
+  void dc_first(BitReader& br, Component& c, int16_t* block, int al) {
+    int t = br.decode(dc[c.td]);
+    int diff = t ? extend(br.bits(t), t) : 0;
+    c.dc_pred += diff;
+    block[0] = shifted(c.dc_pred, al);
+  }
+
+  static void dc_refine(BitReader& br, int16_t* block, int al) {
+    if (br.bits(1)) block[0] = static_cast<int16_t>(block[0] | (1 << al));
+  }
+
+  void ac_first(BitReader& br, const Huffman& h, int16_t* block, int ss, int se, int al) {
+    if (eobrun > 0) {
+      eobrun--;
+      return;
+    }
+    for (int k = ss; k <= se; k++) {
+      int rs = br.decode(h), r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        block[kNatural[k]] = shifted(extend(br.bits(s), s), al);
+      } else if (r == 15) {
+        k += 15;  // ZRL
+      } else {    // EOBr: this block and 2^r - 1 + (r bits) more end here
+        eobrun = (1 << r) + br.bits(r) - 1;
+        break;
+      }
+    }
+  }
+
+  // A correction bit for an already-nonzero coefficient: 1 adds p1 to its
+  // magnitude, unless that bit is set already.
+  static void correct(BitReader& br, int16_t* coef, int p1) {
+    if (br.bits(1) && (*coef & p1) == 0)
+      *coef = static_cast<int16_t>(*coef >= 0 ? *coef + p1 : *coef - p1);
+  }
+
+  void ac_refine(BitReader& br, const Huffman& h, int16_t* block, int ss, int se, int al) {
+    const int p1 = 1 << al;
+    int k = ss;
+    if (eobrun == 0) {
+      for (; k <= se; k++) {
+        int rs = br.decode(h), r = rs >> 4, s = rs & 15;
+        if (s) {  // a newly nonzero coefficient (of size 1: libjpeg warns otherwise)
+          s = br.bits(1) ? p1 : -p1;
+        } else if (r != 15) {  // EOBr; the rest of this block is the EOB run's
+          eobrun = (1 << r) + br.bits(r);
+          break;
+        }
+        // pass r zero coefficients (the next one, if s, is the new one),
+        // reading a correction bit for each nonzero one on the way
+        do {
+          int16_t* coef = &block[kNatural[k]];
+          if (*coef != 0) {
+            correct(br, coef, p1);
+          } else if (--r < 0) {
+            break;
+          }
+          k++;
+        } while (k <= se);
+        if (s) block[kNatural[k]] = static_cast<int16_t>(s);
+      }
+    }
+    if (eobrun > 0) {  // in an EOB run: correction bits only
+      for (; k <= se; k++)
+        if (block[kNatural[k]] != 0) correct(br, &block[kNatural[k]], p1);
+      eobrun--;
+    }
+  }
+
+  // A progressive scan's parameters against jdphuff.c:start_pass_phuff_decoder's
+  // checks, and each coefficient's refinement state
+  void check_progression(Component* const* sc, int ns, int ss, int se, int ah, int al) {
+    bool dc_band = ss == 0;
+    bool bad = dc_band ? se != 0 : (ss > se || se > 63 || ns != 1);
+    if (ah != 0 && al != ah - 1) bad = true;
+    if (al > 13) bad = true;
+    if (bad) fail("bad progressive scan: spectral selection %d-%d", ss, se);
+    for (int i = 0; i < ns; i++) {
+      Component& c = *sc[i];
+      if (!dc_band && c.coef_bits[0] < 0)
+        fail("progressive AC scan of component %d before its DC scan", c.id);
+      for (int k = ss; k <= se; k++) {
+        int expected = c.coef_bits[k] < 0 ? 0 : c.coef_bits[k];
+        if (ah != expected) fail("progressive scan refines coefficient %d from bit %d", k, ah);
+        c.coef_bits[k] = al;
+      }
+    }
+  }
+
   void read_sos() {
     if (!frame) fail("scan before frame header");
     int ns = u8();
@@ -297,8 +410,6 @@ struct Decoder {
       if (!c) fail("scan names component %d", id);
       c->td = t >> 4;
       c->ta = t & 15;
-      if (c->td > 3 || c->ta > 3 || !dc[c->td].defined || !ac[c->ta].defined)
-        fail("scan uses an undefined Huffman table");
       if (!c->latched) {
         if (!quant_defined[c->tq]) fail("component uses undefined quantization table %d", c->tq);
         std::memcpy(c->quant, quant[c->tq], sizeof c->quant);
@@ -308,10 +419,36 @@ struct Decoder {
       c->dc_pred = 0;
       sc[i] = c;
     }
-    int ss = u8(), se = u8(), ahal = u8();
-    if (ss != 0 || se != 63 || ahal != 0) fail("spectral selection %d-%d in a sequential scan", ss, se);
+    int ss = u8(), se = u8(), ahal = u8(), ah = ahal >> 4, al = ahal & 15;
+    // the Huffman tables the scan decodes with
+    bool need_dc = !progressive || (ss == 0 && ah == 0), need_ac = !progressive || ss != 0;
+    for (int i = 0; i < ns; i++) {
+      const Component& c = *sc[i];
+      if ((need_dc && (c.td > 3 || !dc[c.td].defined)) || (need_ac && (c.ta > 3 || !ac[c.ta].defined)))
+        fail("scan uses an undefined Huffman table");
+    }
+    if (!progressive) {
+      if (ss != 0 || se != 63 || ahal != 0) fail("spectral selection %d-%d in a sequential scan", ss, se);
+    } else {
+      check_progression(sc, ns, ss, se, ah, al);
+    }
+    eobrun = 0;
 
     BitReader br{data + pos, data + size};
+    auto block_of = [&](Component& c, int16_t* block) {
+      if (!progressive) {
+        decode_block(br, c, block);
+      } else if (ss == 0) {
+        if (ah == 0)
+          dc_first(br, c, block, al);
+        else
+          dc_refine(br, block, al);
+      } else if (ah == 0) {
+        ac_first(br, ac[c.ta], block, ss, se, al);
+      } else {
+        ac_refine(br, ac[c.ta], block, ss, se, al);
+      }
+    };
     int restarts = 0, left = restart_interval;
     auto maybe_restart = [&]() {
       if (!restart_interval) return;
@@ -320,6 +457,7 @@ struct Decoder {
         restarts++;
         left = restart_interval;
         for (int i = 0; i < ns; i++) sc[i]->dc_pred = 0;
+        eobrun = 0;
       }
       left--;
     };
@@ -330,7 +468,7 @@ struct Decoder {
       for (int by = 0; by < bh; by++)
         for (int bx = 0; bx < bw; bx++) {
           maybe_restart();
-          decode_block(br, c, &c.coef[(static_cast<size_t>(by) * c.blocks_w + bx) * 64]);
+          block_of(c, &c.coef[(static_cast<size_t>(by) * c.blocks_w + bx) * 64]);
         }
     } else {
       for (int my = 0; my < mcus_y; my++)
@@ -341,7 +479,7 @@ struct Decoder {
             for (int v = 0; v < c.v; v++)
               for (int h = 0; h < c.h; h++) {
                 size_t b = static_cast<size_t>(my * c.v + v) * c.blocks_w + mx * c.h + h;
-                decode_block(br, c, &c.coef[b * 64]);
+                block_of(c, &c.coef[b * 64]);
               }
           }
         }
@@ -352,6 +490,25 @@ struct Decoder {
     while (p + 1 < data + size && !(p[0] == 0xFF && p[1] != 0x00 && !(p[1] >= 0xD0 && p[1] <= 0xD7)))
       p++;
     pos = static_cast<size_t>(p - data);
+  }
+
+  // libjpeg-turbo smooths the output of a progressive image when every
+  // component's DC is known, its quantizers there are nonzero, and one of
+  // the first kSmoothingCoefs coefficients of some component is unrefined
+  // (jdcoefct.c:smoothing_ok); this decoder does not, so it refuses.
+  void refuse_block_smoothing() const {
+    static const int kPos[kSmoothingCoefs] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+    bool useful = false;
+    for (int i = 0; i < ncomp; i++) {
+      const Component& c = comp[i];
+      if (!c.latched) return;
+      for (int k = 0; k < kSmoothingCoefs; k++)
+        if (c.quant[kPos[k]] == 0) return;
+      if (c.coef_bits[0] < 0) return;
+      for (int k = 1; k < kSmoothingCoefs; k++) useful |= c.coef_bits[k] != 0;
+    }
+    if (useful)
+      fail("unrefined progressive coefficients: libjpeg's block smoothing is not implemented");
   }
 
   // Walk the markers: up to the frame header only (header_only), or
@@ -374,10 +531,11 @@ struct Decoder {
       switch (marker) {
         case 0xC0:
         case 0xC1:
+        case 0xC2:
+          progressive = marker == 0xC2;
           read_sof();
           if (header_only) return;
           break;
-        case 0xC2:
         case 0xC3:
         case 0xC5:
         case 0xC6:
@@ -420,6 +578,7 @@ struct Decoder {
     }
     if (!frame) fail("JPEG without a frame header");
     if (!scanned) fail("JPEG without a scan");
+    if (progressive) refuse_block_smoothing();
   }
 };
 
@@ -632,8 +791,9 @@ void write_error(const std::string& msg, char* err, int errlen) {
 
 extern "C" {
 
-// The image's size and channel count (1: grayscale, 3: RGB) without
-// decoding it; 0 on success, -1 with a message in err.
+// The image's size and channel count (1: grayscale, 3: RGB) from its
+// frame header (SOF0, SOF1 or SOF2) without decoding it; 0 on success, -1
+// with a message in err.
 int jpeg_header(const uint8_t* data, size_t size, int* width, int* height, int* channels,
                 char* err, int errlen) {
   try {

@@ -32,7 +32,7 @@ import numpy as np
 
 from cutie_tpu_torch.utils.image_io import (read_any, read_image, read_png,
                                             resize_area, resize_bilinear,
-                                            resize_nearest, to_rgba,
+                                            read_rgba, resize_nearest,
                                             write_jpeg, write_png)
 from cutie_tpu_torch.utils.palette import davis_palette
 
@@ -295,7 +295,7 @@ class ResourceManager:
         """The file as RGBA, fitted into size (h, w) by Pillow's BILINEAR
         (on premultiplied alpha, as Image.resize resizes RGBA) and centred
         on a transparent canvas."""
-        image = to_rgba(*read_any(file_name))
+        image = read_rgba(file_name)
         im_h, im_w = image.shape[:2]
         im_ratio = im_w / im_h
         canvas_ratio = size[1] / size[0]

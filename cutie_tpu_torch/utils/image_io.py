@@ -3,23 +3,27 @@ GUI, without PIL or cv2.
 
 The port's counterpart of every PIL.Image and cv2 still-image call in
 cutie_tpu's readers, datasets, result saver, demos, scripts and GUI:
-- a PNG codec in zlib and numpy. It reads 8-bit grayscale, RGB, palette,
-  grayscale-alpha and RGBA images, non-interlaced, with all five row
-  filters; palette and grayscale images also packed at 1, 2 or 4 bits,
-  decoded as Pillow decodes them (read_png). It writes 8-bit palette,
-  grayscale, RGB and RGBA images (write_png). Interlaced and 16-bit files
-  raise;
+- a PNG codec in zlib and numpy. It reads every PNG layout, as Pillow
+  opens it (read_png): grayscale, RGB, palette, grayscale-alpha and RGBA;
+  palette and grayscale images also packed at 1, 2 or 4 bits; 16-bit
+  samples (grayscale as mode 'I;16', the other types keep the high byte,
+  grayscale-alpha opening as RGBA);
+  all five row filters; Adam7 interlacing; and the tRNS transparency that
+  convert('RGBA') honours (read_rgba). It writes 8-bit palette, grayscale,
+  RGB and RGBA images (write_png);
 - Pillow's BILINEAR and NEAREST resizes, bit for bit (resize_bilinear,
   resize_nearest), the readers' shorter-edge resize (resize_shorter), and
   cv2's INTER_AREA downscale (resize_area);
-- a baseline JPEG decoder (read_jpeg), bit-equal to Pillow's decode, and a
-  baseline JPEG encoder (encode_jpeg, write_jpeg), byte-equal to Pillow's
+- a baseline and progressive JPEG decoder (read_jpeg), bit-equal to
+  Pillow's decode, and a baseline JPEG encoder (encode_jpeg, write_jpeg), byte-equal to Pillow's
   save and to cv2.imwrite at the same quality: host C++ in
   csrc_host/jpeg_decode.cpp and csrc_host/jpeg_encode.cpp, built with g++
   at first use into _build/ and called through ctypes, which releases the
   GIL, so that loader and saver threads run in parallel;
 - the mask conversions the training datasets ask of Pillow
-  (convert_mask: convert('L') and convert('P'));
+  (convert_mask: convert('L') and convert('P'), the latter from RGB by
+  Pillow's Floyd-Steinberg dither over its browser palette, host C++ in
+  csrc_host/palette_dither.cpp);
 - binary PPM (P6) in memory, which tkinter's PhotoImage reads (encode_ppm).
 """
 from __future__ import annotations
@@ -112,58 +116,118 @@ def _unpack(rows: np.ndarray, bits: int, width: int) -> np.ndarray:
     return vals.reshape(rows.shape[0], -1)[:, :width].astype(np.uint8)
 
 
-def read_png(path: str) -> Tuple[np.ndarray, str, Optional[List[int]]]:
-    """(pixels, mode, palette) of a PNG file, as np.array(Image.open(path)),
-    its .mode and .getpalette() give them: [H, W] for 'P', 'L' and '1'
-    (bool), [H, W, C] for 'LA', 'RGB' and 'RGBA'; the palette (the PLTE
-    entries, 3 ints each) for 'P', else None."""
-    with open(path, "rb") as f:
-        data = f.read()
+# Adam7: (first column, first row, column step, row step) of each pass
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
+          (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _subimage(stream: np.ndarray, w: int, h: int, channels: int, bits: int):
+    """The raw samples of one filtered (sub)image of w x h pixels: [h, w]
+    for bits < 8 (one channel), else [h, w, channels] (uint16 at 16 bits)."""
+    block = stream.reshape(h, -1)
+    rows = _unfilter(block[:, 1:], block[:, 0], max(1, channels * bits // 8))
+    if bits < 8:
+        return _unpack(rows, bits, w)
+    if bits == 16:
+        pairs = rows.reshape(h, w, channels, 2).astype(np.uint16)
+        return (pairs[..., 0] << 8) | pairs[..., 1]
+    return rows.reshape(h, w, channels)
+
+
+def _decode_png(data: bytes, name: str):
+    """(pixels, mode, palette, transparency) of a PNG file's bytes, as
+    Pillow opens it; transparency is its info['transparency'] from tRNS:
+    bytes (an alpha a palette entry), an int (grayscale) or an (r, g, b)
+    tuple, in the file's sample scale (0/255 for mode '1'); None without
+    tRNS."""
     if not data.startswith(PNG_SIGNATURE):
-        raise ValueError(f"{path} is not a PNG file")
-    header, plte, idat = None, None, []
+        raise ValueError(f"{name} is not a PNG file")
+    header, plte, trns, idat = None, None, None, []
     for kind, payload in _chunks(data):
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", payload)
         elif kind == b"PLTE":
             plte = payload
+        elif kind == b"tRNS":
+            trns = payload
         elif kind == b"IDAT":
             idat.append(payload)
     if header is None:
-        raise ValueError(f"{path}: no IHDR chunk")
+        raise ValueError(f"{name}: no IHDR chunk")
     w, h, bits, color_type, _, _, interlace = header
     if color_type not in _COLOR_TYPES:
-        raise ValueError(f"{path}: PNG colour type {color_type} is not defined")
+        raise ValueError(f"{name}: PNG colour type {color_type} is not defined")
     channels, mode = _COLOR_TYPES[color_type]
-    if bits == 16:
-        raise ValueError(f"{path}: 16-bit PNG images are not supported")
-    if bits != 8 and not (bits in (1, 2, 4) and color_type in _LOW_BIT_TYPES):
-        raise ValueError(f"{path}: {bits}-bit samples in PNG colour type "
+    if not (bits in (8, 16) and color_type != 3
+            or bits in (1, 2, 4, 8) and color_type in _LOW_BIT_TYPES):
+        raise ValueError(f"{name}: {bits}-bit samples in PNG colour type "
                          f"{color_type} are not defined")
-    if interlace:
-        raise ValueError(f"{path}: interlaced PNG images are not supported")
+    if interlace > 1:
+        raise ValueError(f"{name}: PNG interlace method {interlace} is not defined")
     if color_type == 3 and plte is None:
-        raise ValueError(f"{path}: a palette image without a PLTE chunk")
-    rowbytes = (w * channels * bits + 7) // 8
+        raise ValueError(f"{name}: a palette image without a PLTE chunk")
     stream = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if stream.size != h * (rowbytes + 1):
-        raise ValueError(f"{path}: image data of {stream.size} bytes, "
-                         f"expected {h * (rowbytes + 1)}")
-    stream = stream.reshape(h, rowbytes + 1)
-    rows = _unfilter(stream[:, 1:], stream[:, 0], max(1, channels * bits // 8))
+    layout = []   # (x0, y0, dx, dy, width, height) of each pass that has pixels
+    for x0, y0, dx, dy in (_ADAM7 if interlace else ((0, 0, 1, 1),)):
+        pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+        if pw > 0 and ph > 0:   # an empty pass takes no bytes
+            layout.append((x0, y0, dx, dy, pw, ph))
+    sizes = [ph * ((pw * channels * bits + 7) // 8 + 1) for *_, pw, ph in layout]
+    if stream.size != sum(sizes):
+        raise ValueError(f"{name}: image data of {stream.size} bytes, "
+                         f"expected {sum(sizes)}")
+    samples = np.zeros((h, w) if bits < 8 else (h, w, channels),
+                       np.uint16 if bits == 16 else np.uint8)
+    used = 0
+    for (x0, y0, dx, dy, pw, ph), size in zip(layout, sizes):
+        samples[y0::dy, x0::dx] = _subimage(stream[used:used + size], pw, ph,
+                                            channels, bits)
+        used += size
     if bits < 8:
-        pixels = _unpack(rows, bits, w)
-        if color_type == 0:
-            if bits == 1:
-                mode, pixels = "1", pixels.astype(bool)
-            else:
-                pixels = pixels * np.uint8(255 // ((1 << bits) - 1))
-    elif channels == 1:
-        pixels = rows.copy()
+        pixels = samples
+        if color_type == 0 and bits == 1:
+            mode, pixels = "1", samples.astype(bool)
+        elif color_type == 0:
+            pixels = samples * np.uint8(255 // ((1 << bits) - 1))
     else:
-        pixels = rows.reshape(h, w, channels).copy()
+        pixels = samples[..., 0] if channels == 1 else samples
+        if bits == 16 and channels == 1:
+            mode = "I;16"
+        elif bits == 16:
+            pixels = (pixels >> 8).astype(np.uint8)
+            if color_type == 4:   # Pillow opens 16-bit LA as RGBA: L, L, L, A
+                mode, pixels = "RGBA", pixels[..., [0, 0, 0, 1]]
     palette = list(plte) if color_type == 3 else None
-    return pixels, mode, palette
+    transparency = None
+    if trns is not None:
+        if color_type == 3:
+            transparency = bytes(trns)
+        elif color_type == 0 and len(trns) >= 2:
+            transparency = struct.unpack(">H", trns[:2])[0]
+            if mode == "1":   # Pillow scales it to the mode's 0/255
+                transparency *= 255
+        elif color_type == 2 and len(trns) >= 6:
+            transparency = struct.unpack(">HHH", trns[:6])
+    return np.ascontiguousarray(pixels), mode, palette, transparency
+
+
+def read_png(path: str) -> Tuple[np.ndarray, str, Optional[List[int]]]:
+    """(pixels, mode, palette) of a PNG file, as np.array(Image.open(path)),
+    its .mode and .getpalette() give them: [H, W] for 'P', 'L', 'I;16'
+    (uint16) and '1' (bool), [H, W, C] for 'LA', 'RGB' and 'RGBA'; the
+    palette (the PLTE entries, 3 ints each) for 'P', else None."""
+    with open(path, "rb") as f:
+        return _decode_png(f.read(), path)[:3]
+
+
+def _transparent_rgba(rgb: np.ndarray, transparency) -> np.ndarray:
+    """Convert.c:rgbT2rgba after the RGB conversion: alpha 0 where the
+    colour equals the transparent one, each channel's value taken & 0xff as
+    Pillow takes it; 255 elsewhere."""
+    t = (transparency,) * 3 if isinstance(transparency, int) else transparency
+    key = np.array([v & 0xFF for v in t], np.uint8)
+    alpha = np.where((rgb == key).all(axis=-1), 0, 255).astype(np.uint8)
+    return np.concatenate([rgb, alpha[..., None]], axis=-1)
 
 
 def to_rgb(pixels: np.ndarray, mode: str,
@@ -174,31 +238,42 @@ def to_rgb(pixels: np.ndarray, mode: str,
         return pixels
     if mode == "RGBA":
         return np.ascontiguousarray(pixels[..., :3])
-    if mode == "LA":
-        pixels = pixels[..., 0]
     if mode == "P":
-        table = np.zeros((256, 3), np.uint8)
-        entries = np.asarray(palette, np.uint8).reshape(-1, 3)[:256]
-        table[:len(entries)] = entries
-        return table[pixels]
-    if mode == "1":
-        pixels = pixels.astype(np.uint8) * np.uint8(255)
-    return np.repeat(pixels[..., None], 3, axis=-1)
+        return _palette_table(palette)[pixels, :3]
+    return np.repeat(_to_l(pixels, mode)[..., None], 3, axis=-1)
 
 
-def to_rgba(pixels: np.ndarray, mode: str,
-            palette: Optional[List[int]] = None) -> np.ndarray:
+def to_rgba(pixels: np.ndarray, mode: str, palette: Optional[List[int]] = None,
+            transparency=None) -> np.ndarray:
     """[H, W, 4] uint8, as Image.convert('RGBA') makes it from these pixels
-    (read_any's result; a palette's transparency chunk is not read, so
-    every mode but RGBA and LA is opaque)."""
+    and the image's tRNS transparency (_decode_png's results): alpha per
+    palette entry for 'P', one transparent colour for '1', 'L', 'I;16' and
+    'RGB'; otherwise opaque but for an alpha channel."""
     if mode == "RGBA":
         return pixels
     if mode == "LA":
         return np.concatenate([np.repeat(pixels[..., :1], 3, axis=-1),
                                pixels[..., 1:]], axis=-1)
+    if mode == "P":
+        table = _palette_table(palette)
+        if transparency is not None:
+            alphas = np.frombuffer(bytes(transparency), np.uint8)[:256]
+            table[:len(alphas), 3] = alphas
+        return table[pixels]
     rgb = to_rgb(pixels, mode, palette)
+    if transparency is not None:
+        return _transparent_rgba(rgb, transparency)
     alpha = np.full(rgb.shape[:2] + (1,), 255, np.uint8)
     return np.concatenate([rgb, alpha], axis=-1)
+
+
+def read_rgba(path: str) -> np.ndarray:
+    """np.array(Image.open(path).convert('RGBA')) of a PNG or JPEG file,
+    tRNS transparency included."""
+    if is_png(path):
+        with open(path, "rb") as f:
+            return to_rgba(*_decode_png(f.read(), path))
+    return to_rgba(*read_jpeg(path))
 
 
 # ----------------------------------------------------------------- JPEG read
@@ -224,10 +299,12 @@ def jpeg_library() -> ctypes.CDLL:
 
 
 def decode_jpeg(data: bytes, name: str = "JPEG data") -> np.ndarray:
-    """A baseline JPEG held in memory as [H, W] uint8 (one component, mode
-    'L') or [H, W, 3] uint8 RGB, as np.array(Image.open(...)) gives it;
-    raises ValueError naming what it does not support (progressive,
-    arithmetic coding, 12-bit, CMYK, Adobe transforms, other sampling)."""
+    """A baseline or progressive JPEG held in memory as [H, W] uint8 (one
+    component, mode 'L') or [H, W, 3] uint8 RGB, as
+    np.array(Image.open(...)) gives it; raises ValueError naming what it
+    does not support (arithmetic coding, lossless, hierarchical, 12-bit,
+    CMYK/YCCK, Adobe transforms, other sampling, unrefined progressive
+    coefficients, which libjpeg smooths)."""
     lib = jpeg_library()
     buf = np.frombuffer(data, np.uint8)
     err = ctypes.create_string_buffer(_ERR_LEN)
@@ -244,8 +321,9 @@ def decode_jpeg(data: bytes, name: str = "JPEG data") -> np.ndarray:
 
 
 def read_jpeg(path: str) -> Tuple[np.ndarray, str]:
-    """(pixels, mode) of a baseline JPEG file: [H, W, 3] 'RGB' or [H, W]
-    'L', as np.array(Image.open(path)) and its .mode give them."""
+    """(pixels, mode) of a baseline or progressive JPEG file: [H, W, 3]
+    'RGB' or [H, W] 'L', as np.array(Image.open(path)) and its .mode give
+    them."""
     with open(path, "rb") as f:
         pixels = decode_jpeg(f.read(), path)
     return pixels, ("L" if pixels.ndim == 2 else "RGB")
@@ -273,29 +351,89 @@ def l24_luma(rgb: np.ndarray) -> np.ndarray:
             >> 16).astype(np.uint8)
 
 
+def _palette_table(palette: Optional[List[int]]) -> np.ndarray:
+    """[256, 4] uint8 RGBA: the palette's entries, opaque; black past its
+    end."""
+    table = np.zeros((256, 4), np.uint8)
+    table[:, 3] = 255
+    entries = np.asarray(palette, np.uint8).reshape(-1, 3)[:256]
+    table[:len(entries), :3] = entries
+    return table
+
+
+def _to_l(pixels: np.ndarray, mode: str) -> np.ndarray:
+    """convert('L') of a one-channel mode: '1' to 0/255, 'I;16' clipped at
+    255 (Convert.c:I16_L), 'LA' its L; 'L' itself."""
+    if mode == "L":
+        return pixels
+    if mode == "LA":
+        return np.ascontiguousarray(pixels[..., 0])
+    if mode == "1":
+        return pixels.astype(np.uint8) * np.uint8(255)
+    if mode == "I;16":
+        return np.minimum(pixels, 255).astype(np.uint8)
+    raise ValueError(f"mode {mode!r} has no grayscale conversion")
+
+
+# Pillow's browser palette (Palette.c:ImagingPaletteNewBrowser): ten black
+# entries, then the 6x6x6 cube of levels 0, 51, ..., 255, red fastest
+WEB_PALETTE = np.concatenate([
+    np.zeros((10, 3), np.uint8),
+    np.stack(np.meshgrid(np.arange(6), np.arange(6), np.arange(6), indexing="ij"),
+             -1)[..., ::-1].reshape(-1, 3).astype(np.uint8) * np.uint8(51)])
+
+PALETTE_DITHER_SOURCE = CSRC_HOST_DIR / "palette_dither.cpp"
+
+
+@functools.cache
+def palette_dither_library() -> ctypes.CDLL:
+    """The dither's shared library, built as jpeg_library() is."""
+    lib = host_library(PALETTE_DITHER_SOURCE)
+    lib.rgb_to_palette.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib.rgb_to_palette.restype = None
+    return lib
+
+
+def rgb_to_web_palette(rgb: np.ndarray) -> np.ndarray:
+    """Image.convert('P') of [H, W, 3] uint8 RGB: indices into WEB_PALETTE
+    by Pillow's Floyd-Steinberg dither (csrc_host/palette_dither.cpp)."""
+    rgb = np.ascontiguousarray(rgb, np.uint8)
+    h, w = rgb.shape[:2]
+    out = np.empty((h, w), np.uint8)
+    palette = np.ascontiguousarray(WEB_PALETTE)
+    palette_dither_library().rgb_to_palette(rgb.ctypes.data, w, h, palette.ctypes.data,
+                                            len(palette), out.ctypes.data)
+    return out
+
+
 def convert_mask(pixels: np.ndarray, mode: str, palette: Optional[List[int]],
                  target: str) -> np.ndarray:
     """Image.convert(target) of a mask read by read_any, for the two
-    conversions the training datasets make: 'L' (from L, P, RGB, RGBA and
-    LA: Pillow's L24 luma of the colour, the palette's for P) and 'P' (the
-    indices of P, a copy of L). Any other mode raises, naming it."""
-    if target == "L":
-        if mode == "L":
-            return pixels
-        if mode == "LA":
-            return np.ascontiguousarray(pixels[..., 0])
-        if mode in ("RGB", "RGBA"):
-            return l24_luma(pixels[..., :3])
-        if mode == "P":
-            table = np.zeros((256, 3), np.uint8)
-            entries = np.asarray(palette, np.uint8).reshape(-1, 3)[:256]
-            table[:len(entries)] = entries
-            return l24_luma(table)[pixels]
-    elif target == "P":
-        if mode in ("P", "L"):
-            return pixels
-    else:
+    conversions the training datasets make:
+    - 'L': Pillow's L24 luma of the colour for RGB, RGBA and P (the
+      palette's), the L of LA, 0/255 from '1', 'I;16' clipped at 255;
+    - 'P': the indices of P; a copy of L; L first for '1', LA and 'I;16'
+      (Pillow converts those through L); RGB dithered onto the browser
+      palette (rgb_to_web_palette).
+    RGBA to 'P' is an adaptive quantisation in Pillow (Image.quantize) and
+    raises, naming it, as does any other mode."""
+    if target not in ("L", "P"):
         raise ValueError(f"convert_mask converts to 'L' or 'P', not {target!r}")
+    if mode == "P":
+        if target == "P":
+            return pixels
+        return l24_luma(_palette_table(palette)[:, :3])[pixels]
+    if mode in ("RGB", "RGBA"):
+        if target == "L":
+            return l24_luma(pixels[..., :3])
+        if mode == "RGB":
+            return rgb_to_web_palette(pixels)
+        raise ValueError("a mask of mode 'RGBA' cannot be converted to 'P': Pillow "
+                         "quantizes it (Image.quantize, fast octree), which is not "
+                         "implemented")
+    if mode in ("L", "LA", "1", "I;16"):
+        return _to_l(pixels, mode)
     raise ValueError(f"a mask of mode {mode!r} cannot be converted to {target!r}")
 
 

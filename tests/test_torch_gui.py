@@ -340,10 +340,18 @@ def test_import_mask_and_layer(tmp_path):
     rgba[..., 3][rng.random((50, 33)) < 0.3] = 0
     Image.fromarray(rgba, "RGBA").save(tmp_path / "layer.png")
     Image.fromarray(rgba[..., :3]).save(tmp_path / "layer.jpg")
+    # the formats Pillow reads beyond those: a progressive JPEG, a palette
+    # with tRNS transparency (convert('RGBA') gives its entries' alphas), a
+    # 16-bit grayscale mask
+    Image.fromarray(rgba[..., :3]).save(tmp_path / "layer_progressive.jpg", progressive=True)
+    mask.save(tmp_path / "layer_trns.png", transparency=bytes([0, 255, 100]))
+    Image.fromarray(rng.integers(0, 600, (45, 70)).astype(np.uint16)).save(
+        tmp_path / "mask16.png")
     ours, theirs = _resource_managers(tmp_path, "imp", images=str(src), max_overall_size=-1)
-    np.testing.assert_array_equal(ours.import_mask(str(tmp_path / "mask.png"), (30, 40)),
-                                  theirs.import_mask(str(tmp_path / "mask.png"), (30, 40)))
-    for name in ("layer.png", "layer.jpg"):
+    for name in ("mask.png", "mask16.png"):
+        np.testing.assert_array_equal(ours.import_mask(str(tmp_path / name), (30, 40)),
+                                      theirs.import_mask(str(tmp_path / name), (30, 40)))
+    for name in ("layer.png", "layer.jpg", "layer_progressive.jpg", "layer_trns.png"):
         np.testing.assert_array_equal(ours.import_layer(str(tmp_path / name), (30, 40)),
                                       theirs.import_layer(str(tmp_path / name), (30, 40)))
     ours.close()

@@ -177,12 +177,30 @@ def test_png_writer_read_by_pillow(tmp_path, kind):
 
 @pytest.mark.parametrize("header", [dict(bits=16, color_type=2), dict(interlace=1)])
 def test_png_rejects_16_bit_and_interlaced(tmp_path, header):
+    """A 16-bit RGB and an Adam7-interlaced grayscale file decode as Pillow
+    decodes them; what PNG leaves undefined, a 16-bit palette and
+    interlace method 2, raises."""
+    from tests.test_torch_image_formats import png_bytes
+
+    rng = np.random.default_rng(RNG_SEED)
     args = dict(bits=8, color_type=0, interlace=0)
     args.update(header)
+    channels = 3 if args["color_type"] == 2 else 1
+    samples = rng.integers(0, 1 << args["bits"], (5, 7, channels))
     path = tmp_path / "x.png"
-    path.write_bytes(_png(4, 2, args["bits"], args["color_type"],
-                          [b"\0" + b"\0" * 24] * 2, interlace=args["interlace"]))
-    with pytest.raises(ValueError, match="16-bit|interlaced"):
+    path.write_bytes(png_bytes(samples, args["bits"], args["color_type"],
+                               interlace=args["interlace"], rng=rng))
+    pixels, mode, _ = image_io.read_png(str(path))
+    ref = Image.open(path)
+    assert mode == ref.mode
+    np.testing.assert_array_equal(pixels, np.array(ref))
+    np.testing.assert_array_equal(image_io.read_image(str(path)), np.array(ref.convert("RGB")))
+    bad = dict(bits=16, color_type=3) if args["bits"] == 16 else dict(bits=8, color_type=0,
+                                                                        interlace=2)
+    bad = dict(args, **bad)
+    path.write_bytes(_png(4, 2, bad["bits"], bad["color_type"], [b"\0" * 9] * 2,
+                          plte=b"\0" * 3, interlace=bad["interlace"]))
+    with pytest.raises(ValueError, match="16-bit samples in PNG colour type 3|interlace method 2"):
         image_io.read_png(str(path))
 
 

@@ -1,27 +1,36 @@
-"""The port's baseline JPEG decoder and mask conversions against Pillow.
+"""The port's JPEG decoder and mask conversions against Pillow.
 
 cutie_tpu_torch/utils/image_io.py decodes JPEG in host C++
 (csrc_host/jpeg_decode.cpp) without Pillow. The bar is bit equality with
 np.array(Image.open(path)) on every committed JPEG: the decoder matrix
 (qualities 30/75/95; 4:4:4, 4:2:2, 4:2:0; grayscale; a restart interval;
-odd sizes, down to widths that take libjpeg's box upsampling), the VOS
-frames (480x854, 4:2:0, q90) and the static images. Unsupported encodings
-raise, naming what was found. The masks' convert('L') and convert('P')
-are held to Pillow's on every mode they take.
+odd sizes, down to widths that take libjpeg's box upsampling) and its
+progressive twin, the VOS frames (480x854, 4:2:0, q90) and their
+progressive copies, and the static images. Unsupported encodings raise,
+naming what was found. The masks' convert('L') and convert('P') are held
+to Pillow's on every mode they take (tests/test_torch_image_formats.py
+holds the rest of the formats).
 
 write_fixtures() writes tests/torch_fixtures/ with Pillow (run
 `python -m tests.test_torch_jpeg` from the repository root to rewrite
 them): the VOS set (3 videos x 12 frames of the port's synthetic video,
 utils/synth_video.py, box-blurred so that they compress like camera
-frames, with DAVIS-palette P masks), the static set (16 images of about
-384x512 with soft L masks), the decoder matrix, the SHA-256 of Pillow's
-decode of every JPEG (manifest.json) and Pillow's arrays of the matrix
+frames, with DAVIS-palette P masks), its progressive twin of synth_a
+(vos_progressive/: the same pixels saved progressive at q90 4:2:0, the
+first mask as an Adam7-interlaced palette PNG), the static set (16 images
+of about 384x512 with soft L masks), the decoder matrix and its
+progressive twin, a few PNGs Pillow opens in other modes (png/: 16-bit
+grayscale and RGB, a palette with tRNS, a 480x854 RGB mask), the SHA-256
+of Pillow's decode of every JPEG and of these PNGs, with their
+conversions (manifest.json), and Pillow's arrays of the matrix
 (jpeg_expected.npz). The card holds its decode to the manifest.
 """
 import hashlib
 import io
 import json
 import shutil
+import sys
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -57,6 +66,13 @@ MATRIX = {
     "wide_854x24_420": (854, 24, 90, 2, {}),  # chroma width 427, as at 480p
 }
 PROGRESSIVE = "progressive_q75"
+PROGRESSIVE_SUFFIX = "_progressive"   # the matrix's progressive twin: <name>_progressive.jpg
+VOS_TWIN = "vos_progressive"          # synth_a, progressive, its first mask Adam7
+# png/: name -> the conversions whose hashes the manifest keeps
+PNG_FIXTURES = {"gray16": ("L", "RGB", "P"), "rgb16": ("RGB", "L", "P"),
+                "palette_trns": ("RGBA", "RGB"), "mask_rgb_480x854": ("P", "L")}
+# the directories write_fixtures owns (jpeg_enc/ is tests/test_torch_jpeg_encode.py's)
+OWN_DIRS = ("vos", VOS_TWIN, "static", "jpeg", "png")
 
 
 def _decoded_sha(pixels: np.ndarray) -> str:
@@ -83,8 +99,11 @@ def write_fixtures(root: Path = FIXTURES) -> None:
     from cutie_tpu_torch.utils.palette import davis_palette
     from cutie_tpu_torch.utils.synth_video import synth_frames_480, synth_gt_masks_480
 
-    if root.exists():
-        shutil.rmtree(root)
+    from tests.test_torch_image_formats import write_png_fixtures
+
+    for name in OWN_DIRS:
+        if (root / name).exists():
+            shutil.rmtree(root / name)
     # VOS: three videos; the second keeps objects 1 and 2, the third runs
     # backwards
     masks = synth_gt_masks_480(VOS_FRAMES)
@@ -95,9 +114,14 @@ def write_fixtures(root: Path = FIXTURES) -> None:
             frames, vm = frames[::-1], vm[::-1]
         (root / "vos" / "JPEGImages" / vid).mkdir(parents=True)
         (root / "vos" / "Annotations" / vid).mkdir(parents=True)
+        if vi == 0:
+            (root / VOS_TWIN / "JPEGImages" / vid).mkdir(parents=True)
         for ti in range(VOS_FRAMES):
-            _blurred_frame(frames[ti], 2).save(
-                root / "vos" / "JPEGImages" / vid / f"{ti:05d}.jpg", quality=90)
+            frame = _blurred_frame(frames[ti], 2)
+            frame.save(root / "vos" / "JPEGImages" / vid / f"{ti:05d}.jpg", quality=90)
+            if vi == 0:   # the same pixels, progressive, at the same q90 4:2:0
+                frame.save(root / VOS_TWIN / "JPEGImages" / vid / f"{ti:05d}.jpg",
+                           quality=90, progressive=True)
             p = Image.fromarray(vm[ti], "P")
             p.putpalette(davis_palette)
             p.save(root / "vos" / "Annotations" / vid / f"{ti:05d}.png")
@@ -124,18 +148,38 @@ def write_fixtures(root: Path = FIXTURES) -> None:
         path = root / "jpeg" / f"{name}.jpg"
         im.save(path, **kw)
         expected[name] = _pillow_decode(path)
+        im.save(root / "jpeg" / f"{name}{PROGRESSIVE_SUFFIX}.jpg", progressive=True, **kw)
     frames, _ = synth_frames_480(1, 48, 64, seed=41)
     _blurred_frame(frames[0], 1).save(root / "jpeg" / f"{PROGRESSIVE}.jpg",
                                       quality=75, progressive=True)
     np.savez_compressed(root / "jpeg_expected.npz", **expected)
+    png_conversions = write_png_fixtures(root)
     manifest = {}
     for path in sorted(root.rglob("*.jpg")):
+        if path.parent.name == "jpeg_enc":
+            continue
         pixels = _pillow_decode(path)
         manifest[path.relative_to(root).as_posix()] = {
             "sha256": _decoded_sha(pixels), "shape": list(pixels.shape),
-            "supported": path.stem != PROGRESSIVE}
+            "supported": True}
+    for rel, conversions in png_conversions.items():
+        with Image.open(root / rel) as im:
+            pixels = np.array(im)
+            manifest[rel] = {
+                "sha256": _decoded_sha(pixels), "shape": list(pixels.shape),
+                "mode": im.mode, "dtype": str(pixels.dtype),
+                "convert": {m: _decoded_sha(np.array(im.convert(m))) for m in conversions}}
     (root / "manifest.json").write_text(json.dumps(manifest, indent=1, sort_keys=True)
                                         + "\n")
+    # what the root scripts/data tools give on chip_smoke's tree of the VOS set
+    import chip_smoke
+
+    with tempfile.TemporaryDirectory() as tmp:
+        vos = chip_smoke.scripts_data_tree(tmp)
+        expected = chip_smoke.run_scripts_data(
+            vos, Path(tmp) / "out", lambda tool: [sys.executable, f"scripts/data/{tool}.py"])
+    chip_smoke.SCRIPTS_DATA_EXPECTED.write_text(json.dumps(expected, indent=1, sort_keys=True)
+                                                + "\n")
 
 
 def _manifest():
@@ -146,8 +190,8 @@ def test_fixtures_hash_to_the_manifest_under_pillow():
     """Pillow's decode of every committed JPEG still hashes to the
     manifest, and the matrix's expected arrays are Pillow's decode."""
     manifest = _manifest()
-    assert len(manifest) == (len(VOS_VIDEOS) * VOS_FRAMES + STATIC_IMAGES
-                             + len(MATRIX) + 1)
+    assert len(manifest) == (len(VOS_VIDEOS) * VOS_FRAMES + STATIC_IMAGES + 2 * len(MATRIX)
+                             + 1 + VOS_FRAMES + len(PNG_FIXTURES) + 1)
     for rel, entry in manifest.items():
         pixels = _pillow_decode(FIXTURES / rel)
         assert list(pixels.shape) == entry["shape"], rel
@@ -193,6 +237,27 @@ def test_decoder_bit_equal_to_pillow_on_the_datasets(subset):
         assert _decoded_sha(got) == manifest[rel]["sha256"], rel
 
 
+def without_scan(data: bytes, index: int) -> bytes:
+    """The JPEG without its index-th scan (the SOS segment and its
+    entropy-coded data)."""
+    pos, scans, out = 2, -1, [data[:2]]
+    while pos < len(data):
+        marker = data[pos + 1]
+        if marker == 0xD9:
+            out.append(data[pos:])
+            break
+        end = pos + 2 + int.from_bytes(data[pos + 2:pos + 4], "big")
+        if marker == 0xDA:
+            scans += 1
+            while not (data[end] == 0xFF and data[end + 1] != 0
+                       and not 0xD0 <= data[end + 1] <= 0xD7):
+                end += 1
+        if not (marker == 0xDA and scans == index):
+            out.append(data[pos:end])
+        pos = end
+    return b"".join(out)
+
+
 def _patched(data: bytes, marker: bytes, offset: int, value: int) -> bytes:
     """data with the byte `offset` bytes after the first `marker` set."""
     pos = data.index(marker) + offset
@@ -205,7 +270,10 @@ def test_unsupported_encodings_raise_naming_them():
     cmyk = io.BytesIO()
     Image.fromarray(np.full((16, 16, 4), 100, np.uint8), "CMYK").save(cmyk, "JPEG")
     cases = {
-        "progressive": (FIXTURES / "jpeg" / f"{PROGRESSIVE}.jpg").read_bytes(),
+        # the last of its 10 scans left out: luma's AC stays unrefined,
+        # which libjpeg smooths (tests/test_torch_image_formats.py)
+        "unrefined progressive coefficients: libjpeg's block smoothing": without_scan(
+            (FIXTURES / "jpeg" / f"{PROGRESSIVE}.jpg").read_bytes(), 9),
         "arithmetic": _patched(base, sof, 1, 0xC9),
         "lossless": _patched(base, sof, 1, 0xC3),
         "12-bit": _patched(base, sof, 4, 12),
@@ -236,15 +304,16 @@ def _mask_images(rng):
 
 @pytest.mark.parametrize("mode", ["P", "L", "RGB", "RGBA", "LA"])
 def test_mask_conversions_match_pillow(tmp_path, mode):
-    """convert('L') from every mode and convert('P') from P and L equal
-    Pillow's; convert('P') from a colour mode (a quantisation in Pillow)
-    raises, naming the mode."""
+    """convert('L') and convert('P') from every mode equal Pillow's
+    (convert('P') of RGB is Pillow's dither onto its browser palette);
+    convert('P') from RGBA, an adaptive quantisation in Pillow, raises,
+    naming the mode."""
     im = _mask_images(np.random.default_rng(0))[mode]
     path = tmp_path / f"{mode}.png"
     im.save(path)
     np.testing.assert_array_equal(image_io.read_mask(str(path), "L"),
                                   np.array(Image.open(path).convert("L")))
-    if mode in ("P", "L"):
+    if mode != "RGBA":
         np.testing.assert_array_equal(image_io.read_mask(str(path), "P"),
                                       np.array(Image.open(path).convert("P")))
     else:
