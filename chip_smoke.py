@@ -58,17 +58,22 @@ Phases, each printing one JSON line with its wall seconds:
              generic preset, whose get_dataset_cfg turns long-term mode on;
   formats    the image files cutie_tpu reads through Pillow, read without it:
              (a) every progressive JPEG fixture (the decoder matrix's twin,
-             the 12 frames of vos_progressive/) and the PNGs of other modes
-             (Adam7, 16-bit, tRNS, a 480x854 RGB mask) against the hashes of
+             the 12 frames of vos_progressive/), every other coding
+             (jpeg_codings/: Adobe segments, RGB ids, sampling factors,
+             CMYK/YCCK, lossless, arithmetic, block smoothing; the 12
+             frames of vos_encodings/) and the PNGs of other modes (Adam7,
+             16-bit, tRNS, a 480x854 RGB mask) against the hashes of
              Pillow's decode and conversions in manifest.json, and ms to
-             read a 480x854 frame, progressive beside baseline; (b) eval_vos
-             (d17-val) over synth_a as committed and over its progressive /
-             Adam7 twin, twice each in turns: frames bit-equal, saved masks
-             at agreement >= 0.9999 and the IoU bars, kernel #1 launched
-             once a frame after the first in each run; (c) the four
-             scripts/data tools as subprocesses, their outputs against the
-             reference scripts' (tests/torch_fixtures/
-             scripts_data_expected.json);
+             read a 480x854 frame in each coding beside baseline; (b)
+             eval_vos (d17-val) over synth_a as committed, over its
+             progressive / Adam7 twin and over its encodings twin
+             (arithmetic sequential and progressive, Adobe YCbCr, lossless
+             RGB in turn), twice each in turns: frames bit-equal, saved
+             masks at agreement >= 0.9999 (1.0 for the encodings twin) and
+             the IoU bars, kernel #1 launched once a frame after the first
+             in each run; (c) the four scripts/data tools as subprocesses,
+             their outputs against the reference scripts'
+             (tests/torch_fixtures/scripts_data_expected.json);
   scripting  python -m cutie_tpu_torch.scripting_demo_add_del_objects in a
              subprocess on the default device: objects [1] -> [1, 2] -> [2]
              across t = 4 and t = 10, a mask for every frame;
@@ -1145,6 +1150,9 @@ def phase_eval_lt(lt):
 # ------------------------------------------------------------- formats
 
 VOS_TWIN = FIXTURES / "vos_progressive"   # synth_a: progressive JPEG, Adam7 first mask
+# synth_a: frame ti in the coding ENCODINGS[ti % 4] (tests/test_torch_jpeg_codings.py)
+VOS_ENCODINGS = FIXTURES / "vos_encodings"
+ENCODINGS = ("arithmetic_sequential", "arithmetic_progressive", "adobe_ycbcr", "lossless_rgb")
 # what the reference scripts/data/*.py give on scripts_data_tree (written
 # with them by tests/test_torch_jpeg.py:write_fixtures; the tools' CPU test
 # holds the port's tools to them and to this file)
@@ -1158,8 +1166,9 @@ def sha256_of(pixels):
 
 def is_new_format(rel):
     """The manifest's fixtures that the formats phase decodes: progressive
-    JPEGs, the progressive VOS twin and the PNGs of other modes."""
-    return "progressive" in rel or rel.startswith("png/")
+    JPEGs, the progressive VOS twin, the other codings and their VOS twin,
+    and the PNGs of other modes."""
+    return "progressive" in rel or rel.startswith(("png/", "jpeg_codings/", "vos_encodings/"))
 
 
 def check_fixture(rel, entry):
@@ -1276,15 +1285,16 @@ def formats_eval(image_dir, mask_dir, out):
 
 def phase_formats():
     """The image files cutie_tpu reads through Pillow, on the card's
-    machine without Pillow: (a) every progressive JPEG and other-mode PNG
-    fixture against the hashes of Pillow's decode and conversions in
-    manifest.json, and ms to read a 480x854 frame, progressive beside
-    baseline; (b) eval_vos over synth_a as committed (baseline JPEG, the
-    palette PNG) and over its progressive / Adam7 twin, twice each in
-    turns: frames decoded bit-equal, the saved masks of every later run at
-    pixel agreement >= FORMATS_AGREEMENT_MIN and the stream phases' IoU
-    bars against the first run's, kernel #1 launched once a frame after the
-    first in each run; (c) the four scripts/data tools as
+    machine without Pillow: (a) every progressive JPEG, other coding and
+    other-mode PNG fixture against the hashes of Pillow's decode and
+    conversions in manifest.json, and ms to read a 480x854 frame in each
+    coding beside baseline; (b) eval_vos over synth_a as committed
+    (baseline JPEG, the palette PNG), over its progressive / Adam7 twin
+    and over its encodings twin, twice each in turns: frames decoded
+    bit-equal, the saved masks of every later run at pixel agreement >=
+    FORMATS_AGREEMENT_MIN (the encodings twin's at 1.0) and the stream
+    phases' IoU bars against the first run's, kernel #1 launched once a
+    frame after the first in each run; (c) the four scripts/data tools as
     subprocesses over scripts_data_tree, their outputs against
     scripts_data_expected.json."""
     t0 = time.perf_counter()
@@ -1293,14 +1303,21 @@ def phase_formats():
     mismatched = [bad for rel in new for bad in check_fixture(rel, manifest[rel])]
     base_dir = FIXTURES / "vos" / "JPEGImages" / "synth_a"
     twin_dir = VOS_TWIN / "JPEGImages" / "synth_a"
+    enc_dir = VOS_ENCODINGS / "JPEGImages" / "synth_a"
     frames = sorted(f.name for f in base_dir.iterdir())
-    frames_equal = sorted(f.name for f in twin_dir.iterdir()) == frames and all(
-        np.array_equal(read_image(str(base_dir / f)), read_image(str(twin_dir / f)))
-        for f in frames)
-    times = {"baseline": [], "progressive": []}
+    frames_equal = {
+        name: sorted(f.name for f in d.iterdir()) == frames and all(
+            np.array_equal(read_image(str(base_dir / f)), read_image(str(d / f)))
+            for f in frames)
+        for name, d in (("progressive", twin_dir), ("encodings", enc_dir))}
+    # one 480x854 frame of each coding: frame i of the encodings twin is
+    # ENCODINGS[i]
+    readers = {"baseline": base_dir / frames[0], "progressive": twin_dir / frames[0],
+               **{coding: enc_dir / frames[i] for i, coding in enumerate(ENCODINGS)}}
+    times = {name: [] for name in readers}
     for _ in range(2):   # interleaved, twice each
-        times["baseline"].append(read_ms(str(base_dir / frames[0])))
-        times["progressive"].append(read_ms(str(twin_dir / frames[0])))
+        for name, frame in readers.items():
+            times[name].append(read_ms(str(frame)))
     runs = {}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
@@ -1308,10 +1325,12 @@ def phase_formats():
         ann.mkdir(parents=True)
         shutil.copytree(base_dir, tmp / "base" / "JPEGImages" / "synth_a")
         shutil.copy(FIXTURES / "vos" / "Annotations" / "synth_a" / "00000.png", ann)
-        # in turns, baseline, twin, twin, baseline: the first run of a
-        # process also loads the card's kernels
-        for i, name in enumerate(("baseline", "progressive", "progressive", "baseline")):
-            root = tmp / "base" if name == "baseline" else VOS_TWIN
+        # in turns, baseline, twin, encodings, encodings, twin, baseline:
+        # the first run of a process also loads the card's kernels
+        order = ("baseline", "progressive", "encodings", "encodings", "progressive", "baseline")
+        for i, name in enumerate(order):
+            root = {"baseline": tmp / "base", "progressive": VOS_TWIN,
+                    "encodings": VOS_ENCODINGS}[name]
             t1 = time.perf_counter()
             saved, launches, stats = formats_eval(root / "JPEGImages", root / "Annotations",
                                                   tmp / f"out_{i}")
@@ -1330,14 +1349,18 @@ def phase_formats():
     base = runs["baseline_0"]["saved"]
     twins = [r["saved"] for k, r in runs.items() if k != "baseline_0"]
     agree = [float((a == b).mean()) for twin in twins for a, b in zip(twin, base)]
+    agree_encodings = [float((a == b).mean()) for k, r in runs.items()
+                       if k.startswith("encodings") for a, b in zip(r["saved"], base)]
     ious = np.concatenate([stream_ious(twin, base) for twin in twins])
     gt = [read_png(str(f))[0]
           for f in sorted((FIXTURES / "vos" / "Annotations" / "synth_a").iterdir())]
     checks = {
         "fixtures_match_pillow": not mismatched and len(new) > 0,
-        "frames_bit_equal": frames_equal,
+        "frames_bit_equal": all(frames_equal.values()),
         "masks_agree": all(len(t) == len(base) == len(frames) for t in twins)
         and min(agree) >= FORMATS_AGREEMENT_MIN,
+        "encodings_masks_equal": len(agree_encodings) == 2 * len(frames)
+        and min(agree_encodings) == 1.0,
         "iou_bars": bool(iou_ok(ious)),
         "launches": all(r["launches"]["radix_topk_readout"] == len(frames) - 1
                         and r["total_frames"] == len(frames) for r in runs.values()),
@@ -1349,7 +1372,9 @@ def phase_formats():
           "runs": {k: {key: v[key]
                        for key in ("launches", "harness_fps", "total_frames", "seconds")}
                    for k, v in runs.items()},
-          "agreement_min": min(agree), "iou_median": float(np.median(ious)),
+          "frames_bit_equal": frames_equal,
+          "agreement_min": min(agree), "agreement_min_encodings": min(agree_encodings),
+          "iou_median": float(np.median(ious)),
           "iou_min": float(ious.min()),
           "iou_vs_annotations": {k: {"median": float(np.median(stream_ious(v["saved"], gt))),
                                      "min": float(stream_ious(v["saved"], gt).min())}

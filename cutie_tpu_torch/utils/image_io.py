@@ -14,16 +14,21 @@ cutie_tpu's readers, datasets, result saver, demos, scripts and GUI:
 - Pillow's BILINEAR and NEAREST resizes, bit for bit (resize_bilinear,
   resize_nearest), the readers' shorter-edge resize (resize_shorter), and
   cv2's INTER_AREA downscale (resize_area);
-- a baseline and progressive JPEG decoder (read_jpeg), bit-equal to
-  Pillow's decode, and a baseline JPEG encoder (encode_jpeg, write_jpeg), byte-equal to Pillow's
+- a JPEG decoder (read_jpeg), bit-equal to Pillow's decode: Huffman and
+  arithmetic coding, sequential, progressive (with libjpeg-turbo's block
+  smoothing) and lossless, any integral sampling, grayscale, YCbCr, RGB,
+  CMYK and YCCK (mode 'CMYK' as Pillow opens it); and a baseline JPEG
+  encoder (encode_jpeg, write_jpeg), byte-equal to Pillow's
   save and to cv2.imwrite at the same quality: host C++ in
   csrc_host/jpeg_decode.cpp and csrc_host/jpeg_encode.cpp, built with g++
   at first use into _build/ and called through ctypes, which releases the
   GIL, so that loader and saver threads run in parallel;
+- Pillow's CMYK to RGB (Convert.c:cmyk2rgb), under to_rgb and to_rgba;
 - the mask conversions the training datasets ask of Pillow
   (convert_mask: convert('L') and convert('P'), the latter from RGB by
   Pillow's Floyd-Steinberg dither over its browser palette, host C++ in
-  csrc_host/palette_dither.cpp);
+  csrc_host/palette_dither.cpp, and from RGBA by Pillow's fast octree
+  quantizer, csrc_host/quantize_octree.cpp);
 - binary PPM (P6) in memory, which tkinter's PhotoImage reads (encode_ppm).
 """
 from __future__ import annotations
@@ -230,14 +235,25 @@ def _transparent_rgba(rgb: np.ndarray, transparency) -> np.ndarray:
     return np.concatenate([rgb, alpha[..., None]], axis=-1)
 
 
+def cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
+    """Convert.c:cmyk2rgb of [..., 4] uint8: each channel nk - nk * c / 255
+    (MULDIV255's rounding), nk = 255 - k."""
+    v = cmyk.astype(np.int32)
+    nk = 255 - v[..., 3:]
+    t = v[..., :3] * nk + 128
+    return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
+
+
 def to_rgb(pixels: np.ndarray, mode: str,
            palette: Optional[List[int]] = None) -> np.ndarray:
     """[H, W, 3] uint8, as Image.convert('RGB') makes it from these
-    pixels (read_png's result)."""
+    pixels (read_any's result)."""
     if mode == "RGB":
         return pixels
     if mode == "RGBA":
         return np.ascontiguousarray(pixels[..., :3])
+    if mode == "CMYK":
+        return cmyk_to_rgb(pixels)
     if mode == "P":
         return _palette_table(palette)[pixels, :3]
     return np.repeat(_to_l(pixels, mode)[..., None], 3, axis=-1)
@@ -299,12 +315,13 @@ def jpeg_library() -> ctypes.CDLL:
 
 
 def decode_jpeg(data: bytes, name: str = "JPEG data") -> np.ndarray:
-    """A baseline or progressive JPEG held in memory as [H, W] uint8 (one
-    component, mode 'L') or [H, W, 3] uint8 RGB, as
-    np.array(Image.open(...)) gives it; raises ValueError naming what it
-    does not support (arithmetic coding, lossless, hierarchical, 12-bit,
-    CMYK/YCCK, Adobe transforms, other sampling, unrefined progressive
-    coefficients, which libjpeg smooths)."""
+    """A JPEG held in memory as [H, W] uint8 (one component, mode 'L'),
+    [H, W, 3] uint8 RGB or [H, W, 4] uint8 CMYK (four components, inverted
+    as Pillow's 'CMYK;I' raw mode inverts them), as np.array(Image.open(...))
+    gives it; raises ValueError naming what it does not decode
+    (hierarchical and lossless arithmetic processes, 12-bit samples,
+    fractional sampling, lossless YCbCr and YCCK, which libjpeg and so
+    Pillow refuse too)."""
     lib = jpeg_library()
     buf = np.frombuffer(data, np.uint8)
     err = ctypes.create_string_buffer(_ERR_LEN)
@@ -317,16 +334,21 @@ def decode_jpeg(data: bytes, name: str = "JPEG data") -> np.ndarray:
     if lib.jpeg_decode(buf.ctypes.data, buf.size, out.ctypes.data, out.size,
                        err, _ERR_LEN):
         raise ValueError(f"{name}: {err.value.decode()}")
+    if c.value == 4:
+        np.invert(out, out=out)   # JpegImagePlugin opens CMYK with raw mode 'CMYK;I'
     return out
 
 
+JPEG_MODES = {1: "L", 3: "RGB", 4: "CMYK"}
+
+
 def read_jpeg(path: str) -> Tuple[np.ndarray, str]:
-    """(pixels, mode) of a baseline or progressive JPEG file: [H, W, 3]
-    'RGB' or [H, W] 'L', as np.array(Image.open(path)) and its .mode give
+    """(pixels, mode) of a JPEG file: [H, W] 'L', [H, W, 3] 'RGB' or
+    [H, W, 4] 'CMYK', as np.array(Image.open(path)) and its .mode give
     them."""
     with open(path, "rb") as f:
         pixels = decode_jpeg(f.read(), path)
-    return pixels, ("L" if pixels.ndim == 2 else "RGB")
+    return pixels, JPEG_MODES[1 if pixels.ndim == 2 else pixels.shape[2]]
 
 
 def read_any(path: str) -> Tuple[np.ndarray, str, Optional[List[int]]]:
@@ -407,31 +429,61 @@ def rgb_to_web_palette(rgb: np.ndarray) -> np.ndarray:
     return out
 
 
+QUANTIZE_OCTREE_SOURCE = CSRC_HOST_DIR / "quantize_octree.cpp"
+
+
+@functools.cache
+def quantize_octree_library() -> ctypes.CDLL:
+    """The octree quantizer's shared library, built as jpeg_library() is."""
+    lib = host_library(QUANTIZE_OCTREE_SOURCE)
+    lib.rgba_to_octree_palette.argtypes = [ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p,
+                                           ctypes.c_void_p]
+    lib.rgba_to_octree_palette.restype = None
+    return lib
+
+
+def quantize_rgba(rgba: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Image.convert('P') of [H, W, 4] uint8 RGBA, which is
+    Image.quantize(256) by Pillow's fast octree
+    (csrc_host/quantize_octree.cpp): ([H, W] uint8 indices, [256, 4] uint8
+    RGBA palette, as getpalette('RGBA') lists it)."""
+    rgba = np.ascontiguousarray(rgba, np.uint8)
+    if rgba.ndim != 3 or rgba.shape[2] != 4:
+        raise ValueError(f"quantize_rgba takes [H, W, 4] RGBA, not {rgba.shape}")
+    h, w = rgba.shape[:2]
+    out = np.empty((h, w), np.uint8)
+    palette = np.empty((256, 4), np.uint8)
+    quantize_octree_library().rgba_to_octree_palette(rgba.ctypes.data, h * w, out.ctypes.data,
+                                                     palette.ctypes.data)
+    return out, palette
+
+
 def convert_mask(pixels: np.ndarray, mode: str, palette: Optional[List[int]],
                  target: str) -> np.ndarray:
     """Image.convert(target) of a mask read by read_any, for the two
     conversions the training datasets make:
-    - 'L': Pillow's L24 luma of the colour for RGB, RGBA and P (the
-      palette's), the L of LA, 0/255 from '1', 'I;16' clipped at 255;
+    - 'L': Pillow's L24 luma of the colour for RGB, RGBA, CMYK (its RGB)
+      and P (the palette's), the L of LA, 0/255 from '1', 'I;16' clipped at
+      255;
     - 'P': the indices of P; a copy of L; L first for '1', LA and 'I;16'
-      (Pillow converts those through L); RGB dithered onto the browser
-      palette (rgb_to_web_palette).
-    RGBA to 'P' is an adaptive quantisation in Pillow (Image.quantize) and
-    raises, naming it, as does any other mode."""
+      (Pillow converts those through L); RGB, and CMYK through its RGB,
+      dithered onto the browser palette (rgb_to_web_palette); RGBA by the
+      fast octree (quantize_rgba).
+    Any other mode raises, naming it."""
     if target not in ("L", "P"):
         raise ValueError(f"convert_mask converts to 'L' or 'P', not {target!r}")
     if mode == "P":
         if target == "P":
             return pixels
         return l24_luma(_palette_table(palette)[:, :3])[pixels]
+    if mode == "CMYK":
+        pixels, mode = cmyk_to_rgb(pixels), "RGB"
     if mode in ("RGB", "RGBA"):
         if target == "L":
             return l24_luma(pixels[..., :3])
         if mode == "RGB":
             return rgb_to_web_palette(pixels)
-        raise ValueError("a mask of mode 'RGBA' cannot be converted to 'P': Pillow "
-                         "quantizes it (Image.quantize, fast octree), which is not "
-                         "implemented")
+        return quantize_rgba(pixels)[0]
     if mode in ("L", "LA", "1", "I;16"):
         return _to_l(pixels, mode)
     raise ValueError(f"a mask of mode {mode!r} cannot be converted to {target!r}")

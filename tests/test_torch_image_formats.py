@@ -6,12 +6,12 @@ it (cutie_tpu_torch/utils/image_io.py), against Pillow 12 and cutie_tpu.
   decode and to their baseline twins; a seeded loop of small noisy images
   (sizes 1-40, qualities, subsamplings, restart intervals: EOB runs and
   the AC refinement's correction bits); a file without its DC refinement
-  decodes as Pillow decodes it, one without its last AC refinement
-  (which libjpeg smooths) raises, naming it.
+  or its last AC refinement (which libjpeg-turbo smooths) decodes as
+  Pillow decodes it.
 - PNG: Adam7 at every colour type and bit depth, 1x1 to 9x9 (empty
   passes), rows filtered at random; 16-bit samples in Pillow's modes; tRNS
   through convert('RGBA'); convert('P') from RGB (Floyd-Steinberg over the
-  browser palette), '1', 'LA' and 'I;16', and the refusal for RGBA.
+  browser palette), '1', 'LA', 'I;16' and RGBA (the fast octree).
 - The committed fixtures (png/, vos_progressive/) against the manifest.
 - The slice as a whole: cutie_tpu's VideoReader against the port's on
   the progressive twin; the VOS training dataset on progressive frames
@@ -158,10 +158,6 @@ def _conversions_match_pillow(path, targets=("RGB", "RGBA", "L", "P")):
     with Image.open(path) as ref:
         mode = ref.mode
     for target in targets:
-        if mode == "RGBA" and target == "P":
-            with pytest.raises(ValueError, match="quantize"):
-                image_io.read_mask(str(path), "P")
-            continue
         with Image.open(path) as ref:
             want = np.array(ref.convert(target))
         np.testing.assert_array_equal(readers[target](str(path)), want,
@@ -238,20 +234,16 @@ def test_progressive_noisy_images_match_pillow():
 def test_progressive_without_a_scan(dropped):
     """Pillow's progressive script for YCbCr has 10 scans. Without the DC
     refinement (scan 6) every component's first coefficients are refined
-    but the DC's bit 0, which leaves libjpeg's block smoothing off: the
-    decode equals Pillow's. Without the last scan (luma AC bit 0) luma's
-    coefficients 1-9 stay unrefined, which libjpeg smooths: refused."""
+    but the DC's bit 0, which leaves libjpeg's block smoothing off. Without
+    the last scan (luma AC bit 0) luma's coefficients 1-9 stay unrefined,
+    which libjpeg-turbo smooths. Either decode equals Pillow's."""
     data = (FIXTURES / "jpeg" / "q75_420_progressive.jpg").read_bytes()
     assert data.count(b"\xff\xda") == 10
     cut = without_scan(data, 6 if dropped == "dc_refinement" else 9)
     assert cut.count(b"\xff\xda") == 9
-    if dropped == "dc_refinement":
-        want = np.array(Image.open(io.BytesIO(cut)))
-        assert not np.array_equal(want, _pillow_decode(FIXTURES / "jpeg" / "q75_420.jpg"))
-        np.testing.assert_array_equal(image_io.decode_jpeg(cut), want)
-    else:
-        with pytest.raises(ValueError, match="unrefined progressive coefficients"):
-            image_io.decode_jpeg(cut)
+    want = np.array(Image.open(io.BytesIO(cut)))
+    assert not np.array_equal(want, _pillow_decode(FIXTURES / "jpeg" / "q75_420.jpg"))
+    np.testing.assert_array_equal(image_io.decode_jpeg(cut), want)
 
 
 # ------------------------------------------------------------------- PNG
@@ -346,13 +338,14 @@ def test_convert_p_matches_pillow(tmp_path, case):
 
 
 def test_rgba_to_p_refused_naming_quantize(tmp_path):
-    """RGBA to 'P' is Pillow's adaptive quantizer (Image.quantize), not
-    the browser palette: the port raises, naming it."""
+    """RGBA to 'P' is Pillow's adaptive quantizer (Image.quantize, the fast
+    octree), not the browser palette: the port's equals it (it refused
+    before csrc_host/quantize_octree.cpp), and 'L' is the RGB's luma."""
     path = tmp_path / "rgba.png"
     rgba = np.random.default_rng(0).integers(0, 256, (5, 6, 4)).astype(np.uint8)
     Image.fromarray(rgba).save(path)
-    with pytest.raises(ValueError, match="RGBA.*quantize"):
-        image_io.read_mask(str(path), "P")
+    np.testing.assert_array_equal(image_io.read_mask(str(path), "P"),
+                                  np.array(Image.open(path).convert("P")))
     np.testing.assert_array_equal(image_io.read_mask(str(path), "L"),
                                   np.array(Image.open(path).convert("L")))
 

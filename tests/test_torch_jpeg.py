@@ -6,10 +6,11 @@ np.array(Image.open(path)) on every committed JPEG: the decoder matrix
 (qualities 30/75/95; 4:4:4, 4:2:2, 4:2:0; grayscale; a restart interval;
 odd sizes, down to widths that take libjpeg's box upsampling) and its
 progressive twin, the VOS frames (480x854, 4:2:0, q90) and their
-progressive copies, and the static images. Unsupported encodings raise,
-naming what was found. The masks' convert('L') and convert('P') are held
-to Pillow's on every mode they take (tests/test_torch_image_formats.py
-holds the rest of the formats).
+progressive copies, and the static images. What the decoder refuses,
+Pillow refuses too, and the refusal names it. The masks' convert('L') and
+convert('P') are held to Pillow's on every mode they take
+(tests/test_torch_image_formats.py holds the PNG formats and progressive
+JPEG, tests/test_torch_jpeg_codings.py the other codings).
 
 write_fixtures() writes tests/torch_fixtures/ with Pillow (run
 `python -m tests.test_torch_jpeg` from the repository root to rewrite
@@ -20,10 +21,12 @@ frames, with DAVIS-palette P masks), its progressive twin of synth_a
 first mask as an Adam7-interlaced palette PNG), the static set (16 images
 of about 384x512 with soft L masks), the decoder matrix and its
 progressive twin, a few PNGs Pillow opens in other modes (png/: 16-bit
-grayscale and RGB, a palette with tRNS, a 480x854 RGB mask), the SHA-256
-of Pillow's decode of every JPEG and of these PNGs, with their
-conversions (manifest.json), and Pillow's arrays of the matrix
-(jpeg_expected.npz). The card holds its decode to the manifest.
+grayscale and RGB, a palette with tRNS, a 480x854 RGB mask), the codings
+Pillow cannot write (jpeg_codings/ and the vos_encodings/ twin of synth_a,
+by tests/jpeg_writer.py), the SHA-256 of Pillow's decode of every JPEG and
+of these PNGs, with their conversions (manifest.json), and Pillow's arrays
+of the matrix (jpeg_expected.npz). The card holds its decode to the
+manifest.
 """
 import hashlib
 import io
@@ -71,8 +74,10 @@ VOS_TWIN = "vos_progressive"          # synth_a, progressive, its first mask Ada
 # png/: name -> the conversions whose hashes the manifest keeps
 PNG_FIXTURES = {"gray16": ("L", "RGB", "P"), "rgb16": ("RGB", "L", "P"),
                 "palette_trns": ("RGBA", "RGB"), "mask_rgb_480x854": ("P", "L")}
-# the directories write_fixtures owns (jpeg_enc/ is tests/test_torch_jpeg_encode.py's)
+# the directories write_fixtures owns (jpeg_enc/ is tests/test_torch_jpeg_encode.py's;
+# jpeg_codings/ and vos_encodings/ are written by tests/test_torch_jpeg_codings.py)
 OWN_DIRS = ("vos", VOS_TWIN, "static", "jpeg", "png")
+CODINGS_DIR, VOS_ENCODINGS = "jpeg_codings", "vos_encodings"
 
 
 def _decoded_sha(pixels: np.ndarray) -> str:
@@ -154,6 +159,9 @@ def write_fixtures(root: Path = FIXTURES) -> None:
                                       quality=75, progressive=True)
     np.savez_compressed(root / "jpeg_expected.npz", **expected)
     png_conversions = write_png_fixtures(root)
+    from tests.test_torch_jpeg_codings import write_coding_fixtures
+
+    write_coding_fixtures(root)
     manifest = {}
     for path in sorted(root.rglob("*.jpg")):
         if path.parent.name == "jpeg_enc":
@@ -189,9 +197,12 @@ def _manifest():
 def test_fixtures_hash_to_the_manifest_under_pillow():
     """Pillow's decode of every committed JPEG still hashes to the
     manifest, and the matrix's expected arrays are Pillow's decode."""
+    from tests.test_torch_jpeg_codings import CODINGS
+
     manifest = _manifest()
     assert len(manifest) == (len(VOS_VIDEOS) * VOS_FRAMES + STATIC_IMAGES + 2 * len(MATRIX)
-                             + 1 + VOS_FRAMES + len(PNG_FIXTURES) + 1)
+                             + 1 + VOS_FRAMES + len(PNG_FIXTURES) + 1
+                             + len(CODINGS) + VOS_FRAMES)
     for rel, entry in manifest.items():
         pixels = _pillow_decode(FIXTURES / rel)
         assert list(pixels.shape) == entry["shape"], rel
@@ -264,28 +275,47 @@ def _patched(data: bytes, marker: bytes, offset: int, value: int) -> bytes:
     return data[:pos] + bytes([value]) + data[pos + 1:]
 
 
-def test_unsupported_encodings_raise_naming_them():
+def _refused_by_pillow_too():
+    """what -> a JPEG that libjpeg (under Pillow) refuses, with the words
+    of the port's refusal."""
+    from tests import jpeg_writer as jw
+
     base = (FIXTURES / "jpeg" / "q75_420.jpg").read_bytes()
     sof = b"\xff\xc0"
-    cmyk = io.BytesIO()
-    Image.fromarray(np.full((16, 16, 4), 100, np.uint8), "CMYK").save(cmyk, "JPEG")
-    cases = {
-        # the last of its 10 scans left out: luma's AC stays unrefined,
-        # which libjpeg smooths (tests/test_torch_image_formats.py)
-        "unrefined progressive coefficients: libjpeg's block smoothing": without_scan(
-            (FIXTURES / "jpeg" / f"{PROGRESSIVE}.jpg").read_bytes(), 9),
-        "arithmetic": _patched(base, sof, 1, 0xC9),
-        "lossless": _patched(base, sof, 1, 0xC3),
+    gray = np.arange(13 * 9, dtype=np.uint8).reshape(9, 13)
+    lossless = jw.write_lossless([gray], [1])
+    planes = [np.full((16, 24), v, np.uint8) for v in (90, 120, 200, 30)]
+
+    def frame(sampling):
+        comps = [jw.Component(i + 1, h, v, 0) for i, (h, v) in enumerate(sampling)]
+        return jw.dct_coefficients(planes[:len(comps)],
+                                   jw.Frame(24, 16, comps, {0: jw.LUMA_QUANT}))
+
+    return {
         "12-bit": _patched(base, sof, 4, 12),
-        "sampling factors 4x1": _patched(base, sof, 11, 0x41),
-        "CMYK": cmyk.getvalue(),
+        "hierarchical JPEG \\(SOF5\\)": _patched(base, sof, 1, 0xC5),
+        "lossless arithmetic-coded JPEG \\(SOF11\\)": _patched(lossless, b"\xff\xc3", 1, 0xCB),
+        "fractional sampling": jw.write_huffman(frame([(3, 1), (2, 1), (1, 1)])),
+        "an MCU of 12 blocks": jw.write_huffman(frame([(2, 2), (2, 2), (2, 2)])),
+        "2 components": jw.write_huffman(frame([(1, 1), (1, 1)])),
+        "lossless YCCK": jw.write_lossless(planes, [1, 2, 3, 4], markers=jw.adobe_segment(2)),
+        "lossless YCbCr": jw.write_lossless(planes[:3], [1, 2, 3], markers=jw.JFIF),
         "not a JPEG": b"\x89PNG\r\n\x1a\n" + bytes(16),
+        "truncated|RST|marker": base[:len(base) // 3],
     }
-    for what, data in cases.items():
+
+
+def test_unsupported_encodings_raise_naming_them():
+    """What the decoder refuses is what Pillow refuses too: 12-bit samples,
+    the hierarchical and lossless arithmetic processes, fractional sampling
+    ratios, MCUs of more than 10 blocks, 2 components, lossless YCCK and
+    YCbCr, a file that is not a JPEG, a truncated one. Each raises,
+    naming it, and Pillow fails on the same bytes."""
+    for what, data in _refused_by_pillow_too().items():
+        with pytest.raises(Exception):
+            np.array(Image.open(io.BytesIO(data)))
         with pytest.raises(ValueError, match=what):
             image_io.decode_jpeg(data)
-    with pytest.raises(ValueError, match="truncated|RST|marker"):
-        image_io.decode_jpeg(base[:len(base) // 3])
 
 
 def _mask_images(rng):
@@ -305,20 +335,15 @@ def _mask_images(rng):
 @pytest.mark.parametrize("mode", ["P", "L", "RGB", "RGBA", "LA"])
 def test_mask_conversions_match_pillow(tmp_path, mode):
     """convert('L') and convert('P') from every mode equal Pillow's
-    (convert('P') of RGB is Pillow's dither onto its browser palette);
-    convert('P') from RGBA, an adaptive quantisation in Pillow, raises,
-    naming the mode."""
+    (convert('P') of RGB is Pillow's dither onto its browser palette, of
+    RGBA its fast octree quantizer)."""
     im = _mask_images(np.random.default_rng(0))[mode]
     path = tmp_path / f"{mode}.png"
     im.save(path)
     np.testing.assert_array_equal(image_io.read_mask(str(path), "L"),
                                   np.array(Image.open(path).convert("L")))
-    if mode != "RGBA":
-        np.testing.assert_array_equal(image_io.read_mask(str(path), "P"),
-                                      np.array(Image.open(path).convert("P")))
-    else:
-        with pytest.raises(ValueError, match=mode):
-            image_io.read_mask(str(path), "P")
+    np.testing.assert_array_equal(image_io.read_mask(str(path), "P"),
+                                  np.array(Image.open(path).convert("P")))
     # a grayscale JPEG mask converts too
     if mode == "L":
         jpg = tmp_path / "mask.jpg"
