@@ -637,6 +637,15 @@ def last_read_case(core, frame):
     return dict(zip(ARGS, core.steps.read_inputs(core.state, feats, rep=0, row=0)))
 
 
+def is_device_op(ev):
+    """Whether a key_averages() entry is a device operation: CUDA-typed, and
+    not a record_function range's device-side copy (a gpu_user_annotation,
+    such as the port's cutie.* spans), whose time is its range's length
+    and would count the kernels under it again."""
+    return (getattr(ev, "device_type", None) == DeviceType.CUDA
+            and not getattr(ev, "is_user_annotation", False))
+
+
 def kernel_ms_per_frame(core, frames, first):
     """Kernel time a frame (torch.profiler's device time, all kernels) over
     frames[first:], continuing the stream; None where the profiler records
@@ -647,7 +656,7 @@ def kernel_ms_per_frame(core, frames, first):
             core.step(frames[ti])
         torch.cuda.synchronize()
     us = sum(getattr(ev, "self_device_time_total", 0) for ev in prof.key_averages()
-             if getattr(ev, "device_type", None) == DeviceType.CUDA)
+             if is_device_op(ev))
     return us / 1e3 / (frames.shape[0] - first) if us > 0 else None
 
 
@@ -1475,8 +1484,7 @@ def profiled(fn, wall_ms):
         fn()
         torch.cuda.synchronize()
     evs = [ev for ev in prof.key_averages()
-           if getattr(ev, "device_type", None) == DeviceType.CUDA
-           and getattr(ev, "self_device_time_total", 0) > 0]
+           if is_device_op(ev) and getattr(ev, "self_device_time_total", 0) > 0]
     kernel_ms = sum(ev.self_device_time_total for ev in evs) / 1e3
     top = sorted(evs, key=lambda ev: -ev.self_device_time_total)[:10]
     return {"kernel_ms": kernel_ms, "device_ops": sum(ev.count for ev in evs),

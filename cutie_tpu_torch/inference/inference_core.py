@@ -33,6 +33,7 @@ from cutie_tpu_torch.inference.state import (MemoryState, grow_perm,
 from cutie_tpu_torch.inference.steps import StepFunctions
 from cutie_tpu_torch.ops.resize import bilinear_resize, nearest_exact_resize_np
 from cutie_tpu_torch.ops.tensor_utils import aggregate_wbg_np, compute_pad
+from cutie_tpu_torch.utils.tracing import span
 
 log = logging.getLogger(__name__)
 
@@ -307,114 +308,119 @@ class InferenceCore:
              idx_mask: bool = True, end: bool = False,
              delete_buffer: bool = True, force_permanent: bool = False
              ) -> torch.Tensor:
-        """See reference inference_core.py:172-201 for the full semantics."""
-        if objects is None and mask is not None:
-            if idx_mask:
-                raise ValueError("an index mask needs its object ids")
-            objects = list(range(1, mask.shape[0] + 1))
-        image = self._to_image(image)
-        orig_h, orig_w = image.shape[-2:]
-        new_h, new_w = self.internal_size(orig_h, orig_w)
-        resize_needed = (new_h, new_w) != (orig_h, orig_w)
-        if resize_needed:
-            # non-antialiased bilinear on the device, as the reference
-            # (inference_core.py:203-225); index masks nearest-exact
-            image = bilinear_resize(image, new_h, new_w)
+        """See reference inference_core.py:172-201 for the full semantics.
+        One call is one span inference_core.step (utils/tracing.py)."""
+        with span("inference_core.step"):
+            if objects is None and mask is not None:
+                if idx_mask:
+                    raise ValueError("an index mask needs its object ids")
+                objects = list(range(1, mask.shape[0] + 1))
+            with span("inference_core.upload"):
+                image = self._to_image(image)
+                orig_h, orig_w = image.shape[-2:]
+                new_h, new_w = self.internal_size(orig_h, orig_w)
+                resize_needed = (new_h, new_w) != (orig_h, orig_w)
+                if resize_needed:
+                    # non-antialiased bilinear on the device, as the reference
+                    # (inference_core.py:203-225); index masks nearest-exact
+                    image = bilinear_resize(image, new_h, new_w)
+                    if mask is not None:
+                        mask = np.asarray(mask)
+                        mask = (nearest_exact_resize_np(mask, new_h, new_w)
+                                if idx_mask else bilinear_resize(
+                                    torch.from_numpy(mask.astype(np.float32)),
+                                    new_h, new_w).numpy())
+            h, w = image.shape[-2:]
+            self.curr_ti += 1
+            self.pad = compute_pad(h, w, 16)
+            lw, uw, lh, uh = self.pad
+            h_pad, w_pad = h + lh + uh, w + lw + uw
+
+            is_mem_frame = ((self.curr_ti - self.last_mem_ti >= self.mem_every)
+                            or (mask is not None)) and (not end)
+            need_segment = (mask is None) or (
+                self.object_manager.num_obj > 0
+                and not self.object_manager.has_all(list(objects)))
+            update_sensory = ((self.curr_ti - self.last_mem_ti)
+                              in self.stagger_ti) and (not end)
+
+            def restore_size(prob):
+                return bilinear_resize(prob, orig_h, orig_w) if resize_needed else prob
+
+            if (mask is None and self.engaged and not force_permanent
+                    and not self.save_aux and delete_buffer
+                    and self.curr_ti not in self.image_feature_store):
+                bucket_rep, bucket_sel = self._buckets()
+                prob = self.steps.step_plain(
+                    self.state, image, self._selector(), bucket_rep, bucket_sel,
+                    update_sensory=update_sensory, do_memorize=is_mem_frame,
+                    pad=self.pad, n_out=self.object_manager.num_obj + 1)
+                if is_mem_frame:
+                    self.last_mem_ti = self.curr_ti
+                    self._maybe_consolidate()
+                return restore_size(prob)
+
+            feats = self.image_feature_store.get_features(self.curr_ti, image,
+                                                          pad=self.pad)
+
+            def empty_result():
+                # free the features cached above (nothing will consume them: ti
+                # advances every step) and match the normal output size
+                if delete_buffer:
+                    self.image_feature_store.delete(self.curr_ti)
+                return torch.zeros((1, orig_h, orig_w), device=self.device)
+
+            pred_prob_with_bg = None
+            if need_segment:
+                if not self.engaged:
+                    log.warning("Trying to segment without any memory!")
+                    return empty_result()
+                bucket_rep, bucket_sel = self._buckets()
+                prob, aux = self.steps.segment(self.state, feats, self._selector(),
+                                               update_sensory, bucket_rep, bucket_sel)
+                if self.save_aux:
+                    self.aux = aux
+                pred_prob_with_bg = prob[0]
+
             if mask is not None:
-                mask = np.asarray(mask)
-                mask = (nearest_exact_resize_np(mask, new_h, new_w) if idx_mask
-                        else bilinear_resize(torch.from_numpy(mask.astype(np.float32)),
-                                             new_h, new_w).numpy())
-        h, w = image.shape[-2:]
-        self.curr_ti += 1
-        self.pad = compute_pad(h, w, 16)
-        lw, uw, lh, uh = self.pad
-        h_pad, w_pad = h + lh + uh, w + lw + uw
+                if idx_mask and len(objects) == 0:
+                    log.warning("Trying to insert an empty mask as memory!")
+                    return empty_result()
+                with span("inference_core.merge_mask"):
+                    pred_np = (pred_prob_with_bg.cpu().numpy()
+                               if pred_prob_with_bg is not None else None)
+                    last_mask = self._merge_input_mask(mask, objects, idx_mask,
+                                                       pred_np, h_pad, w_pad)
+                    prob_with_bg = torch.from_numpy(
+                        aggregate_wbg_np(last_mask, keep_bg=True)).to(self.device)
+                    self.steps.set_last_mask(self.state, prob_with_bg[None, 1:])
+                pred_prob_with_bg = prob_with_bg
 
-        is_mem_frame = ((self.curr_ti - self.last_mem_ti >= self.mem_every)
-                        or (mask is not None)) and (not end)
-        need_segment = (mask is None) or (
-            self.object_manager.num_obj > 0
-            and not self.object_manager.has_all(list(objects)))
-        update_sensory = ((self.curr_ti - self.last_mem_ti)
-                          in self.stagger_ti) and (not end)
-
-        def restore_size(prob):
-            return bilinear_resize(prob, orig_h, orig_w) if resize_needed else prob
-
-        if (mask is None and self.engaged and not force_permanent
-                and not self.save_aux and delete_buffer
-                and self.curr_ti not in self.image_feature_store):
-            bucket_rep, bucket_sel = self._buckets()
-            prob = self.steps.step_plain(
-                self.state, image, self._selector(), bucket_rep, bucket_sel,
-                update_sensory=update_sensory, do_memorize=is_mem_frame,
-                pad=self.pad, n_out=self.object_manager.num_obj + 1)
-            if is_mem_frame:
+            if is_mem_frame or force_permanent:
+                hw = (h_pad // 16) * (w_pad // 16)
+                if force_permanent or not self.engaged:
+                    mode = "all"
+                elif self._new_slots:
+                    mode = "split"   # new objects' tokens become permanent
+                else:
+                    mode = "no"
+                if mode in ("all", "split"):
+                    need = self.state.perm_n + hw
+                    if need > self.state.perm_key.shape[1]:
+                        self.state = grow_perm(self.state, need)
+                new_mask = torch.zeros(self.state.num_objects, device=self.device)
+                new_mask[self._new_slots] = 1.0
+                self.steps.memorize(self.state, feats, self._selector(), new_mask,
+                                    mode=mode)
                 self.last_mem_ti = self.curr_ti
-                self._maybe_consolidate()
-            return restore_size(prob)
-
-        feats = self.image_feature_store.get_features(self.curr_ti, image,
-                                                      pad=self.pad)
-
-        def empty_result():
-            # free the features cached above (nothing will consume them: ti
-            # advances every step) and match the normal output size
+                if mode in ("no", "split"):
+                    self._maybe_consolidate()
+            self._new_slots = []
             if delete_buffer:
                 self.image_feature_store.delete(self.curr_ti)
-            return torch.zeros((1, orig_h, orig_w), device=self.device)
 
-        pred_prob_with_bg = None
-        if need_segment:
-            if not self.engaged:
-                log.warning("Trying to segment without any memory!")
-                return empty_result()
-            bucket_rep, bucket_sel = self._buckets()
-            prob, aux = self.steps.segment(self.state, feats, self._selector(),
-                                           update_sensory, bucket_rep, bucket_sel)
-            if self.save_aux:
-                self.aux = aux
-            pred_prob_with_bg = prob[0]
-
-        if mask is not None:
-            if idx_mask and len(objects) == 0:
-                log.warning("Trying to insert an empty mask as memory!")
-                return empty_result()
-            pred_np = (pred_prob_with_bg.cpu().numpy()
-                       if pred_prob_with_bg is not None else None)
-            last_mask = self._merge_input_mask(mask, objects, idx_mask, pred_np,
-                                               h_pad, w_pad)
-            prob_with_bg = torch.from_numpy(
-                aggregate_wbg_np(last_mask, keep_bg=True)).to(self.device)
-            self.steps.set_last_mask(self.state, prob_with_bg[None, 1:])
-            pred_prob_with_bg = prob_with_bg
-
-        if is_mem_frame or force_permanent:
-            hw = (h_pad // 16) * (w_pad // 16)
-            if force_permanent or not self.engaged:
-                mode = "all"
-            elif self._new_slots:
-                mode = "split"   # new objects' tokens become permanent
-            else:
-                mode = "no"
-            if mode in ("all", "split"):
-                need = self.state.perm_n + hw
-                if need > self.state.perm_key.shape[1]:
-                    self.state = grow_perm(self.state, need)
-            new_mask = torch.zeros(self.state.num_objects, device=self.device)
-            new_mask[self._new_slots] = 1.0
-            self.steps.memorize(self.state, feats, self._selector(), new_mask,
-                                mode=mode)
-            self.last_mem_ti = self.curr_ti
-            if mode in ("no", "split"):
-                self._maybe_consolidate()
-        self._new_slots = []
-        if delete_buffer:
-            self.image_feature_store.delete(self.curr_ti)
-
-        out = pred_prob_with_bg[:, lh:h_pad - uh, lw:w_pad - uw]
-        return restore_size(out[:self.object_manager.num_obj + 1])
+            out = pred_prob_with_bg[:, lh:h_pad - uh, lw:w_pad - uw]
+            return restore_size(out[:self.object_manager.num_obj + 1])
 
     # ------------------------------------------------------------- public api
 
@@ -437,6 +443,8 @@ class InferenceCore:
             torch.tensor([1.0] * keep + [0.0] * (o - keep), device=self.device))
 
     def output_prob_to_mask(self, output_prob: torch.Tensor) -> np.ndarray:
-        """argmax, then temporary ids -> object ids (inference_core.py:337-345)."""
-        mask = output_prob.argmax(dim=0).cpu().numpy()
-        return self.object_manager.tmp_to_obj_cls(mask)
+        """argmax, then temporary ids -> object ids (inference_core.py:337-345),
+        in the span inference_core.to_host."""
+        with span("inference_core.to_host"):
+            mask = output_prob.argmax(dim=0).cpu().numpy()
+            return self.object_manager.tmp_to_obj_cls(mask)

@@ -34,6 +34,7 @@ from cutie_tpu_torch.ops.read_kernel import radix_topk_readout
 from cutie_tpu_torch.parallel.mesh import all_gather
 from cutie_tpu_torch.parallel.sharded_memory import (make_mem_mesh,
                                                      sharded_composite_readout)
+from cutie_tpu_torch.utils.tracing import span
 
 
 class FrameFeatures(NamedTuple):
@@ -104,13 +105,14 @@ class StepFunctions:
     def encode(self, image: torch.Tensor, *, pad=(0, 0, 0, 0)) -> FrameFeatures:
         """image [3, H, W] float in [0, 1] on the model's device; pad
         (lw, uw, lh, uh) zero padding to a multiple of 16."""
-        x = F.pad(image[None], pad)
-        if self.flip_aug:
-            x = torch.cat([x, x.flip(-1)])
-        (f16, f8, f4), pix_feat = self.model.encode_image(x)
-        key, shrinkage, selection = self.model.transform_key(f16)
-        return FrameFeatures(x, f16, f8, f4, pix_feat, key, shrinkage,
-                             selection)
+        with span("steps.encode"):
+            x = F.pad(image[None], pad)
+            if self.flip_aug:
+                x = torch.cat([x, x.flip(-1)])
+            (f16, f8, f4), pix_feat = self.model.encode_image(x)
+            key, shrinkage, selection = self.model.transform_key(f16)
+            return FrameFeatures(x, f16, f8, f4, pix_feat, key, shrinkage,
+                                 selection)
 
     def read_inputs(self, state: MemoryState, feats: FrameFeatures,
                     rep: int, row: int):
@@ -154,31 +156,33 @@ class StepFunctions:
         (kv_memory_store.py:151-162; the counters are shared across buckets,
         the deviation PARITY.md records). Returns the pixel memory readout
         [B, O, Cv, h, w]."""
-        b, _, h, w = feats.key.shape
-        hw = h * w
-        o, cv = state.num_objects, state.work_value.shape[-1]
-        f = state.work_key.shape[1]
-        pcap, lcap = state.perm_key.shape[1], state.lt_key.shape[1]
-        lt_valid = state.lt_valid(self.lt_offset(state))
-        pixel_readout = torch.zeros((b, o, hw, cv), device=feats.key.device)
-        for bi, rep in enumerate(bucket_rep):
-            if self.mem_mesh is None:
-                reads = [radix_topk_readout(*self.read_inputs(state, feats, rep, r),
-                                            self.top_k) for r in range(b)]
-                rd = torch.stack([rd for rd, _ in reads])
-                usage = torch.stack([us for _, us in reads])        # [B, N]
-                lt_usage, work_usage = usage[:, pcap:pcap + lcap], usage[:, pcap + lcap:]
-            else:
-                rd, lt_usage, work_usage = self.sharded_read(state, feats, rep,
-                                                             lt_valid)
-            pixel_readout += rd * bucket_sel[bi][None, :, None, None]
-            if self.use_long_term:
-                state.lt_use += lt_usage
-                state.work_use += work_usage.reshape(b, f, hw)
-                life_w = state.ring_valid() & state.work_obj_valid[rep]   # [F]
-                state.work_life += life_w.float()[None, :, None]
-                state.lt_life += (lt_valid & state.lt_obj_valid[rep]).float()[None]
-        return pixel_readout.transpose(2, 3).reshape(b, o, cv, h, w)
+        with span("steps.read_memory"):
+            b, _, h, w = feats.key.shape
+            hw = h * w
+            o, cv = state.num_objects, state.work_value.shape[-1]
+            f = state.work_key.shape[1]
+            pcap, lcap = state.perm_key.shape[1], state.lt_key.shape[1]
+            lt_valid = state.lt_valid(self.lt_offset(state))
+            pixel_readout = torch.zeros((b, o, hw, cv), device=feats.key.device)
+            for bi, rep in enumerate(bucket_rep):
+                if self.mem_mesh is None:
+                    reads = [radix_topk_readout(*self.read_inputs(state, feats, rep, r),
+                                                self.top_k) for r in range(b)]
+                    rd = torch.stack([rd for rd, _ in reads])
+                    usage = torch.stack([us for _, us in reads])        # [B, N]
+                    lt_usage = usage[:, pcap:pcap + lcap]
+                    work_usage = usage[:, pcap + lcap:]
+                else:
+                    rd, lt_usage, work_usage = self.sharded_read(state, feats, rep,
+                                                                 lt_valid)
+                pixel_readout += rd * bucket_sel[bi][None, :, None, None]
+                if self.use_long_term:
+                    state.lt_use += lt_usage
+                    state.work_use += work_usage.reshape(b, f, hw)
+                    life_w = state.ring_valid() & state.work_obj_valid[rep]   # [F]
+                    state.work_life += life_w.float()[None, :, None]
+                    state.lt_life += (lt_valid & state.lt_obj_valid[rep]).float()[None]
+            return pixel_readout.transpose(2, 3).reshape(b, o, cv, h, w)
 
     def sharded_read(self, state: MemoryState, feats: FrameFeatures, rep: int,
                      lt_valid: torch.Tensor):
@@ -230,45 +234,46 @@ class StepFunctions:
           attn_mask     [B, O, heads, Q, hw] bool, True = blocked;
           sensory       [B, O, Cs, h, w] the updated sensory memory;
         B is 2 under flip_aug (both orientations)."""
-        model = self.model
-        pixel_readout = self.read_memory(state, feats, bucket_rep, bucket_sel)
-        obj_mem = state.obj_v[:, :, None]
-        b, o = state.sensory.shape[:2]
-        # pixel fusion and the object transformer run per bucket, as in the
-        # reference (memory_manager.py:183-195)
-        mem_readout, aux = 0, None
-        for bi in range(len(bucket_rep)):
-            bsel = bucket_sel[bi]
-            fused = model.pixel_fusion(
-                feats.pix_feat, pixel_readout, state.sensory,
-                state.last_mask * bsel[None, :, None, None])
-            r, aux_b = model.readout_query(fused, obj_mem,
-                                           selector=bsel[None].expand(b, o))
-            sel5 = bsel[None, :, None, None, None]
-            mem_readout = mem_readout + r * sel5
-            if self.save_aux and aux_b is not None:
-                am = aux_b["attn_mask"].view(b, o, *aux_b["attn_mask"].shape[1:])
-                if aux is None:
-                    aux = {"pixel_readout": fused * sel5,
-                           "q_logits": aux_b["logits"] * sel5, "attn_mask": am}
-                else:
-                    aux["pixel_readout"] = aux["pixel_readout"] + fused * sel5
-                    aux["q_logits"] = aux["q_logits"] + aux_b["logits"] * sel5
-                    aux["attn_mask"] = torch.where(sel5 > 0.5, am,
-                                                   aux["attn_mask"])
-        sensory, _, prob = model.segment(
-            (feats.f16, feats.f8, feats.f4), mem_readout, state.sensory,
-            selector=selector[None].expand(b, o), update_sensory=update_sensory)
-        state.sensory = sensory
-        if self.flip_aug:
-            prob = 0.5 * (prob[0:1] + prob[1:2].flip(-1))
-            last = prob[:, 1:]
-            state.last_mask = torch.cat([last, last.flip(-1)])
-        else:
-            state.last_mask = prob[:, 1:]
-        if aux is not None:
-            aux["sensory"] = sensory
-        return prob, aux
+        with span("steps.segment"):
+            model = self.model
+            pixel_readout = self.read_memory(state, feats, bucket_rep, bucket_sel)
+            obj_mem = state.obj_v[:, :, None]
+            b, o = state.sensory.shape[:2]
+            # pixel fusion and the object transformer run per bucket, as in the
+            # reference (memory_manager.py:183-195)
+            mem_readout, aux = 0, None
+            for bi in range(len(bucket_rep)):
+                bsel = bucket_sel[bi]
+                fused = model.pixel_fusion(
+                    feats.pix_feat, pixel_readout, state.sensory,
+                    state.last_mask * bsel[None, :, None, None])
+                r, aux_b = model.readout_query(fused, obj_mem,
+                                               selector=bsel[None].expand(b, o))
+                sel5 = bsel[None, :, None, None, None]
+                mem_readout = mem_readout + r * sel5
+                if self.save_aux and aux_b is not None:
+                    am = aux_b["attn_mask"].view(b, o, *aux_b["attn_mask"].shape[1:])
+                    if aux is None:
+                        aux = {"pixel_readout": fused * sel5,
+                               "q_logits": aux_b["logits"] * sel5, "attn_mask": am}
+                    else:
+                        aux["pixel_readout"] = aux["pixel_readout"] + fused * sel5
+                        aux["q_logits"] = aux["q_logits"] + aux_b["logits"] * sel5
+                        aux["attn_mask"] = torch.where(sel5 > 0.5, am,
+                                                       aux["attn_mask"])
+            sensory, _, prob = model.segment(
+                (feats.f16, feats.f8, feats.f4), mem_readout, state.sensory,
+                selector=selector[None].expand(b, o), update_sensory=update_sensory)
+            state.sensory = sensory
+            if self.flip_aug:
+                prob = 0.5 * (prob[0:1] + prob[1:2].flip(-1))
+                last = prob[:, 1:]
+                state.last_mask = torch.cat([last, last.flip(-1)])
+            else:
+                state.last_mask = prob[:, 1:]
+            if aux is not None:
+                aux["sensory"] = sensory
+            return prob, aux
 
     @torch.no_grad()
     def memorize(self, state: MemoryState, feats: FrameFeatures,
@@ -282,46 +287,47 @@ class StepFunctions:
         seen this frame (new_obj_mask [O]) go to permanent memory, the others
         into the ring. The caller makes room in the permanent buffer and, in
         long-term mode, consolidates before the ring would wrap."""
-        b, ck, h, w = feats.key.shape
-        o = state.num_objects
-        hw = h * w
-        f = state.work_key.shape[1]
-        msk_value, sensory, obj_summaries, _ = self.model.encode_mask(
-            feats.image, feats.pix_feat, state.sensory, state.last_mask,
-            deep_update=deep_update)
-        state.obj_v = state.obj_v + obj_summaries * selector[None, :, None, None]
-        state.sensory = sensory
+        with span("steps.memorize"):
+            b, ck, h, w = feats.key.shape
+            o = state.num_objects
+            hw = h * w
+            f = state.work_key.shape[1]
+            msk_value, sensory, obj_summaries, _ = self.model.encode_mask(
+                feats.image, feats.pix_feat, state.sensory, state.last_mask,
+                deep_update=deep_update)
+            state.obj_v = state.obj_v + obj_summaries * selector[None, :, None, None]
+            state.sensory = sensory
 
-        key_t, shr_t = _tokens(feats.key), _tokens(feats.shrinkage)[..., 0]
-        sel_t = _tokens(feats.selection)
-        val_t = (msk_value.flatten(3).transpose(2, 3)
-                 * selector[None, :, None, None])              # [B, O, HW, Cv]
-        live = selector > 0.5
-        if mode in ("all", "split"):
-            perm_objs = live if mode == "all" else new_obj_mask > 0.5
-            n0 = state.perm_n
-            state.perm_key[:, n0:n0 + hw] = key_t
-            state.perm_shrink[:, n0:n0 + hw] = shr_t
-            state.perm_value[:, :, n0:n0 + hw] = val_t
-            state.perm_obj_valid[:, n0:n0 + hw] = perm_objs[:, None]
-            state.perm_n = n0 + hw
-            if mode == "all":
-                return
-        ring_objs = live if mode == "no" else live & ~(new_obj_mask > 0.5)
-        # FIFO: a full ring overwrites its oldest slot (memory_manager.py:296)
-        slot = (state.work_start + state.work_count) % f
-        if state.work_count >= f:
-            state.work_start = (state.work_start + 1) % f
-        else:
-            state.work_count += 1
-        state.work_key[:, slot] = key_t
-        state.work_shrink[:, slot] = shr_t
-        state.work_value[:, :, slot] = val_t
-        state.work_obj_valid[:, slot] = ring_objs
-        # fresh usage counters for the (re)used slot (kv_memory_store.py:132-134)
-        state.work_sel[:, slot] = sel_t
-        state.work_use[:, slot] = 0.0
-        state.work_life[:, slot] = 1e-7
+            key_t, shr_t = _tokens(feats.key), _tokens(feats.shrinkage)[..., 0]
+            sel_t = _tokens(feats.selection)
+            val_t = (msk_value.flatten(3).transpose(2, 3)
+                     * selector[None, :, None, None])              # [B, O, HW, Cv]
+            live = selector > 0.5
+            if mode in ("all", "split"):
+                perm_objs = live if mode == "all" else new_obj_mask > 0.5
+                n0 = state.perm_n
+                state.perm_key[:, n0:n0 + hw] = key_t
+                state.perm_shrink[:, n0:n0 + hw] = shr_t
+                state.perm_value[:, :, n0:n0 + hw] = val_t
+                state.perm_obj_valid[:, n0:n0 + hw] = perm_objs[:, None]
+                state.perm_n = n0 + hw
+                if mode == "all":
+                    return
+            ring_objs = live if mode == "no" else live & ~(new_obj_mask > 0.5)
+            # FIFO: a full ring overwrites its oldest slot (memory_manager.py:296)
+            slot = (state.work_start + state.work_count) % f
+            if state.work_count >= f:
+                state.work_start = (state.work_start + 1) % f
+            else:
+                state.work_count += 1
+            state.work_key[:, slot] = key_t
+            state.work_shrink[:, slot] = shr_t
+            state.work_value[:, :, slot] = val_t
+            state.work_obj_valid[:, slot] = ring_objs
+            # fresh usage counters for the (re)used slot (kv_memory_store.py:132-134)
+            state.work_sel[:, slot] = sel_t
+            state.work_use[:, slot] = 0.0
+            state.work_life[:, slot] = 1e-7
 
     def set_last_mask(self, state: MemoryState, prob_no_bg: torch.Tensor) -> None:
         """Overwrite last_mask (after user-provided masks are merged) with
@@ -353,14 +359,15 @@ class StepFunctions:
         them, consolidates as one device would (the eviction ranks the
         usage of every slot) and keeps its slice: the result of the global
         gathers XLA inserts for cutie_tpu's _consolidate."""
-        if self.lt_sharded():
-            whole = self.gather_lt(state)
-            self.consolidate_whole(whole, n_candidate_frames, lt_keep)
-            whole = slice_lt(whole, self.lt_shard())
-            for field in dataclasses.fields(state):
-                setattr(state, field.name, getattr(whole, field.name))
-        else:
-            self.consolidate_whole(state, n_candidate_frames, lt_keep)
+        with span("steps.consolidate"):
+            if self.lt_sharded():
+                whole = self.gather_lt(state)
+                self.consolidate_whole(whole, n_candidate_frames, lt_keep)
+                whole = slice_lt(whole, self.lt_shard())
+                for field in dataclasses.fields(state):
+                    setattr(state, field.name, getattr(whole, field.name))
+            else:
+                self.consolidate_whole(state, n_candidate_frames, lt_keep)
 
     def consolidate_whole(self, state: MemoryState, n_candidate_frames: int,
                           lt_keep: Optional[int]) -> None:

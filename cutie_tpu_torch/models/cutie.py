@@ -21,6 +21,7 @@ run in fp32 (models/layers.py:fp32_island).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Dict, List, Optional
 
@@ -39,16 +40,24 @@ from cutie_tpu_torch.ops.memory import (get_similarity_expanded, readout,
                                         softmax_affinity)
 from cutie_tpu_torch.ops.resize import area_downsample, upsample_4x
 from cutie_tpu_torch.ops.tensor_utils import aggregate, clip
+from cutie_tpu_torch.utils.tracing import span
 
 
-def _stage(method):
-    """Run a stage method under autocast to the model's compute dtype."""
-    @functools.wraps(method)
-    def run(self, *args, **kwargs):
-        with torch.autocast(self.pixel_mean.device.type, dtype=torch.bfloat16,
-                            enabled=self.compute_dtype == torch.bfloat16):
-            return method(self, *args, **kwargs)
-    return run
+def _stage(span_name: Optional[str] = None):
+    """Run a stage method under autocast to the model's compute dtype, and
+    in the span "models.<span_name>" (utils/tracing.py) where one is
+    named."""
+    name = None if span_name is None else "models." + span_name
+
+    def wrap(method):
+        @functools.wraps(method)
+        def run(self, *args, **kwargs):
+            with span(name) if name else contextlib.nullcontext(), torch.autocast(
+                    self.pixel_mean.device.type, dtype=torch.bfloat16,
+                    enabled=self.compute_dtype == torch.bfloat16):
+                return method(self, *args, **kwargs)
+        return run
+    return wrap
 
 
 class CUTIE(nn.Module):
@@ -91,19 +100,19 @@ class CUTIE(nn.Module):
             return None
         return clip(masks.sum(dim=1, keepdim=True) - masks, 0.0, 1.0)
 
-    @_stage
+    @_stage("pixel_encoder")
     def encode_image(self, image: torch.Tensor):
         """image [B, 3, H, W] in [0, 1] -> ((f16, f8, f4), pix_feat)."""
         ms_image_feat = self.pixel_encoder(self._normalize(image))
         return ms_image_feat, self.pix_feat_proj(ms_image_feat[0])
 
-    @_stage
+    @_stage("key_projection")
     def transform_key(self, final_pix_feat: torch.Tensor, *,
                       need_sk: bool = True, need_ek: bool = True):
         """f16 -> (key, shrinkage, selection)."""
         return self.key_proj(final_pix_feat, need_s=need_sk, need_e=need_ek)
 
-    @_stage
+    @_stage("mask_encoder")
     def encode_mask(self, image: torch.Tensor, pix_feat: torch.Tensor,
                     sensory: torch.Tensor, masks: torch.Tensor, *,
                     deep_update: bool = True, need_weights: bool = False):
@@ -119,7 +128,7 @@ class CUTIE(nn.Module):
             summaries, logits = None, None
         return mask_value, new_sensory, summaries, logits
 
-    @_stage
+    @_stage("pixel_fusion")
     def pixel_fusion(self, pix_feat: torch.Tensor, pixel: torch.Tensor,
                      sensory: torch.Tensor, last_mask: torch.Tensor
                      ) -> torch.Tensor:
@@ -129,7 +138,7 @@ class CUTIE(nn.Module):
         return self.pixel_fuser(pix_feat, pixel, sensory, last_mask,
                                 self._get_others(last_mask))
 
-    @_stage
+    @_stage("object_transformer")
     def readout_query(self, pixel_readout: torch.Tensor,
                       obj_memory: Optional[torch.Tensor], *,
                       selector: Optional[torch.Tensor] = None):
@@ -138,7 +147,7 @@ class CUTIE(nn.Module):
         return self.object_transformer(pixel_readout, obj_memory,
                                        selector=selector)
 
-    @_stage
+    @_stage("mask_decoder")
     def segment(self, ms_image_feat: List[torch.Tensor],
                 memory_readout: torch.Tensor, sensory: torch.Tensor, *,
                 selector: Optional[torch.Tensor] = None,
@@ -161,7 +170,7 @@ class CUTIE(nn.Module):
             return sensory, logits, prob, low
         return sensory, logits, prob
 
-    @_stage
+    @_stage()
     def compute_aux(self, pix_feat: torch.Tensor,
                     aux_inputs: Dict[str, torch.Tensor],
                     selector: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:

@@ -34,6 +34,7 @@ import torch
 
 from cutie_tpu_torch.ops.cuda_build import load_library
 from cutie_tpu_torch.ops.memory import get_similarity, readout, topk_softmax_radix
+from cutie_tpu_torch.utils.tracing import span
 
 SOURCE = "radix_topk_readout.cu"
 FUSED_SOURCE = "fused_topk_readout.cu"
@@ -207,10 +208,12 @@ def radix_topk_readout_cuda(mk: torch.Tensor, ms: torch.Tensor,
     and count one launch per read in `radix_topk_readout.launches`, however
     many waves the read takes. Returns (readout, usage, tau [P] fp32), tau
     being each query's k-th largest similarity. Raises on anything the
-    kernel does not take."""
-    _check_keys("radix_topk_readout", mk, ms, valid, qk, qe, top_k)
-    segs = _check_segments(mk, values)
-    out, usage, tau = _radix_launch(mk, ms, valid, qk, qe, segs, top_k)
+    kernel does not take. Runs in the span read_kernel.radix_topk_readout
+    (utils/tracing.py)."""
+    with span("read_kernel.radix_topk_readout"):
+        _check_keys("radix_topk_readout", mk, ms, valid, qk, qe, top_k)
+        segs = _check_segments(mk, values)
+        out, usage, tau = _radix_launch(mk, ms, valid, qk, qe, segs, top_k)
     radix_topk_readout.launches += 1
     return out, usage, tau
 
