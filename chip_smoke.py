@@ -12,9 +12,11 @@ Phases, each printing one JSON line with its wall seconds:
   stream     the working-memory path: InferenceCore.step of cutie-base on the
              trained test weights, 12 frames of the synthetic 480x854
              three-object video, held to the recorded reference masks; the
-             read kernel must have been launched there, and it is held to its
-             plain version again on the stream's own read inputs; then the
-             kernel time a frame of 4 more frames under torch.profiler;
+             read kernel must have been launched there, cuDNN must have
+             timed its convolutions in every step (cudnn_timing.steps), and
+             the kernel is held to its plain version again on the stream's
+             own read inputs; then the kernel time a frame of 4 more frames
+             under torch.profiler;
   lt_stream  the long-term path: the same in long-term mode over the 26
              frames of the long-term golden, with consolidation and reads
              over three value segments (perm | lt | work);
@@ -153,7 +155,8 @@ Phases, each printing one JSON line with its wall seconds:
              stream, at world 1 through kernel #1 (its launches are the
              phase's) and at world 2 with mem_mesh_devices = 2 (half the
              long-term slots a rank), against the golden and the lt_stream
-             phase's id maps; (c) main training at full width (T=8,
+             phase's id maps, the ranks' maps equal, cuDNN timing in every
+             step at world 1 and in none at world 2; (c) main training at full width (T=8,
              480x480, amp, remat, global batch 2, 3 steps), the parameters
              bit-equal across the ranks after every step, ms a step, and at
              world 2 the fp32 gradient against one process on the global
@@ -186,6 +189,7 @@ from cutie_tpu_torch.data.setup_training_data import setup_main_training_dataset
 from cutie_tpu_torch.eval_vos import eval_vos
 from cutie_tpu_torch.gui.main_controller import FETCH_DEPTH, MainController
 from cutie_tpu_torch.inference import InferenceCore
+from cutie_tpu_torch.inference.inference_core import cudnn_timing
 from cutie_tpu_torch.ops import cuda_build, read_kernel
 from cutie_tpu_torch.ops.memory import (_float_order_key, get_similarity,
                                         get_similarity_expanded, readout,
@@ -588,9 +592,11 @@ def run_stream(core, frames, step, size):
     """Step the core through every frame with step(core, ti, frame),
     synchronised per frame. Each output must be finite probabilities of
     shape (objects + 1,) + size. Returns (object-id maps, frame_ms, read
-    launches during the run, kernel #1's launches in each frame)."""
+    launches during the run and the steps cuDNN timed in, kernel #1's
+    launches in each frame)."""
     read_kernel.radix_topk_readout.launches = 0
     read_kernel.fused_topk_readout.launches = 0
+    timed = cudnn_timing.steps
     id_maps, frame_ms, per_frame = [], [], []
     for ti in range(frames.shape[0]):
         before = read_kernel.radix_topk_readout.launches
@@ -606,7 +612,8 @@ def run_stream(core, frames, step, size):
                                f"expected {shape}")
         id_maps.append(core.output_prob_to_mask(prob))
     launches = {"radix_topk_readout": read_kernel.radix_topk_readout.launches,
-                "fused_topk_readout": read_kernel.fused_topk_readout.launches}
+                "fused_topk_readout": read_kernel.fused_topk_readout.launches,
+                "cudnn_timed_steps": cudnn_timing.steps - timed}
     return id_maps, frame_ms, launches, per_frame
 
 
@@ -757,7 +764,7 @@ def phase_stream(k=30):
     sim_ok = sim_ulps <= qk.shape[1] + 8
 
     ok = (launches["radix_topk_readout"] > 0 and iou_ok(ious) and ok_read
-          and sim_ok)
+          and sim_ok and launches["cudnn_timed_steps"] == t)
     kernel_ms = kernel_ms_per_frame(core, frames, t)
     emit({"phase": "stream", "frames": t, "objects": 3, "size": [480, 854],
           "tokens": int(args[0].shape[0]), "queries": int(args[3].shape[0]),
@@ -2700,6 +2707,7 @@ def phase_multi(lres, lvos600, smi, k=30):
                  "lt_count": runs[0]["lt_count"], "lt_capacity": runs[0]["lt_capacity"],
                  "lt_slots_by_rank": [r["lt_slots"] for r in runs],
                  "kernel1_launches": [r["launches"]["radix_topk_readout"] for r in runs],
+                 "cudnn_timed_steps": [r["launches"]["cudnn_timed_steps"] for r in runs],
                  "iou_median": float(np.median(ious)), "iou_min": float(ious.min()),
                  "iou_vs_lt_stream_median": float(np.median(vs_lt)),
                  "iou_vs_lt_stream_min": float(vs_lt.min()),
@@ -2710,7 +2718,9 @@ def phase_multi(lres, lvos600, smi, k=30):
                        and entry["consolidations"] == lres["consolidations"] >= 1
                        and all(n == entry["lt_capacity"] // world
                                for n in entry["lt_slots_by_rank"])
-                       and (world > 1 or entry["kernel1_launches"][0] > 0))
+                       and (world > 1 or entry["kernel1_launches"][0] > 0)
+                       and all(n == (len(maps) if world == 1 else 0)
+                               for n in entry["cudnn_timed_steps"]))
         streams[f"world{world}"] = entry
         streams_ok &= entry["ok"]
 

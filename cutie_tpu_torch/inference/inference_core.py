@@ -17,6 +17,7 @@ model's device.
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 from typing import List, Optional
 
@@ -36,6 +37,38 @@ from cutie_tpu_torch.ops.tensor_utils import aggregate_wbg_np, compute_pad
 from cutie_tpu_torch.utils.tracing import span
 
 log = logging.getLogger(__name__)
+
+
+@contextlib.contextmanager
+def cudnn_timing(device: torch.device, on: bool = True):
+    """cuDNN times its convolution algorithms inside: the first call of
+    each convolution shape times the fp32 algorithms and caches the fastest.
+    PyTorch keys that cache by shape for the whole process, whichever mode
+    filled the entry, so a shape first met outside would keep the
+    heuristic's choice: at 720p that ran the decoder's 3x3 256->128
+    convolution as an FFT in 319 ms on an H100, where the timed implicit
+    GEMM takes 0.93 ms. Only the benchmark flag changes: TF32 stays as
+    set_fp32_precision left it, and the caller's flag is back on exit,
+    also on an exception. With on False nothing changes: the sharded read
+    needs every rank's network to compute the same bits, and timing picks
+    its plans in each process apart, where the heuristic's plan follows
+    from the shape and the card alone. `cudnn_timing.steps` counts the
+    entries that timed on a CUDA device."""
+    if not on:
+        yield
+        return
+    if device.type == "cuda":
+        cudnn_timing.steps += 1
+    before = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.benchmark = before
+
+
+cudnn_timing.steps = 0
+
 
 class InferenceCore:
 
@@ -309,8 +342,11 @@ class InferenceCore:
              delete_buffer: bool = True, force_permanent: bool = False
              ) -> torch.Tensor:
         """See reference inference_core.py:172-201 for the full semantics.
-        One call is one span inference_core.step (utils/tracing.py)."""
-        with span("inference_core.step"):
+        One call is one span inference_core.step (utils/tracing.py), and
+        runs every network call under cudnn_timing, except on a mesh of
+        ranks."""
+        with span("inference_core.step"), cudnn_timing(
+                self.device, on=self.steps.mem_mesh is None):
             if objects is None and mask is not None:
                 if idx_mask:
                     raise ValueError("an index mask needs its object ids")

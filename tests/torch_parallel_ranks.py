@@ -182,6 +182,36 @@ def rank_streams() -> dict:
                                     ("stream_small_lt.npz", True))}
 
 
+def rank_conv_timing(frames: int = 4) -> dict:
+    """cutie-small at random weights over random 48x80 frames with the read
+    sharded over two ranks and the caller's cudnn.benchmark False: the
+    flag each network call saw, the flag after the stream and the rise of
+    cudnn_timing.steps (tests/test_torch_conv_autotune.py)."""
+    from cutie_tpu_torch.inference.inference_core import cudnn_timing
+    torch.manual_seed(0)
+    cfg = eval_config("small")
+    cfg.merge({"mem_every": 2, "use_long_term": False, "mem_mesh_devices": 2})
+    net = build_model(cfg, device="cpu")
+    seen = []
+    for name in ("pixel_encoder", "mask_decoder", "mask_encoder"):
+        getattr(net, name).register_forward_pre_hook(
+            lambda m, args: seen.append(torch.backends.cudnn.benchmark))
+    core = InferenceCore(net, cfg)
+    rng = np.random.default_rng(0)
+    mask = np.zeros((48, 80), np.int64)
+    mask[8:30, 10:40] = 1
+    torch.backends.cudnn.benchmark = False
+    count = cudnn_timing.steps
+    for ti in range(frames):
+        frame = rng.integers(0, 256, (48, 80, 3), dtype=np.uint8)
+        if ti == 0:
+            core.step(frame, mask, objects=[1])
+        else:
+            core.step(frame)
+    return {"seen": seen, "after": torch.backends.cudnn.benchmark,
+            "counted": cudnn_timing.steps - count}
+
+
 # --------------------------------------------------------------- training
 
 def tiny_batch(b=2, t=3, hw=64, o=2, seed=0) -> dict:
