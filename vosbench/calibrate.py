@@ -24,6 +24,7 @@ from pathlib import Path
 sys.path[0] = str(Path(__file__).resolve().parent.parent)
 
 from vosbench import check, harness, spec as specs  # noqa: E402
+from vosbench.events import Frame, Script  # noqa: E402
 from vosbench.reference.stream import ReferenceStream  # noqa: E402
 from vosbench.video import Stream, SyntheticVideo  # noqa: E402
 from vosbench.weights import load_weights, make_weights  # noqa: E402
@@ -49,15 +50,19 @@ def loop_witness(spec: dict, workload: str, seed: int, frames: int,
     ref_net = check.build_reference(model_cfg, seed, dev)
     video = SyntheticVideo(traffic, seed)
     start = Stream(traffic["clip_frames"], int(traffic["warmup_frames"])).start(0)
-    objects = list(range(1, video.num_objects + 1))
+    script = Script(traffic)
+    setups = script.setup(specs.config(spec, wl["config"]), seed, dev)
     port, ref = InferenceCore(net, cfg), ReferenceStream(ref_net, traffic["core"])
     rows, parted = [], None
     for t in range(frames):
         i = start + t
-        args = (video.frame(i), video.mask(i), objects) if t == 0 else (video.frame(i),)
-        p = port.step(*args)
+        fr = Frame(video, i, t, setups)
+        script.program(port, fr)
+        p = fr.step(port)
         torch.backends.cudnn.benchmark = True
-        r = ref.step(*args)
+        fr = Frame(video, i, t, setups)
+        script.reference(ref, fr)
+        r = fr.step(ref)
         torch.backends.cudnn.benchmark = False
         mism = float((p.argmax(0) != r.argmax(0)).float().mean())
         rows.append([t, float((p.float() - r.float()).abs().mean()), mism])

@@ -2,15 +2,17 @@
 
 The window streams the cell's synthetic video through the port's
 InferenceCore in a closed loop, one frame at a time: a frame is timed from
-handing the host HxWx3 uint8 frame to InferenceCore.step until
+its events (vosbench/events: a deletion, a mask for the step) and handing
+the host HxWx3 uint8 frame to InferenceCore.step until
 InferenceCore.output_prob_to_mask has returned the host mask. Each video
 gets a new InferenceCore on the same network, its first frame carrying the
-first-frame index mask, as cutie_tpu_torch.eval_vos does.
+index mask of its first objects, as cutie_tpu_torch.eval_vos does.
 
 Set-up (setup_s): process start to the window's opening: imports, CUDA
-and the model, the seed's weights made on the device, the frame pool, and
-the warm-up, which is the cell's own traffic (warmup_frames frames) and so
-uses every shape the window uses.
+and the model, the seed's weights made on the device, the frame pool, what
+the cell's kinds of event set up, and the warm-up, which is the cell's own
+traffic (warmup_frames frames, events included) and so uses every shape
+the window uses.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from typing import List, Optional
 import torch
 
 from vosbench import check, profiling, schedule, spec as specs
+from vosbench.events import Frame, Script
 from vosbench.flops import peaks, stage_flops
 from vosbench.video import Stream, SyntheticVideo
 from vosbench.weights import load_weights, make_weights
@@ -53,13 +56,14 @@ def port_config(model_cfg: dict, core: dict):
     return cfg
 
 
-def _frame_plan(traffic: dict, stream: Stream, frames: int) -> List[dict]:
+def _frame_plan(traffic: dict, stream: Stream, frames: int,
+                script: Script) -> List[dict]:
     """The schedule entry of every stream frame up to `frames`."""
     h, w = schedule.internal_size(*traffic["frame"],
                                   traffic["core"].get("max_internal_size", -1))
     tokens = schedule.tokens_per_frame(h, w)
     length = max(stream.clip_frames or 0, stream.warmup, frames)
-    one = schedule.video_schedule(traffic["core"], tokens, length)
+    one = schedule.video_schedule(traffic["core"], tokens, length, script)
     return [one[stream.position(i)] for i in range(frames)]
 
 
@@ -94,13 +98,16 @@ def run_cell(spec: dict, workload_name: str, seed: int, seconds: float,
     warmup = int(traffic["warmup_frames"])
     video = SyntheticVideo(traffic, seed)
     stream = Stream(traffic["clip_frames"], warmup)
-    objects = list(range(1, video.num_objects + 1))
+    script = Script(traffic)
+    setups = script.setup(cfg_file, seed, dev)
     horizon = (warmup + int(traffic["check"]["min_fps"] * seconds)
                + (stream.clip_frames or 0))
     plan = check.SamplePlan(traffic, stream, seed, seconds,
-                            _frame_plan(traffic, stream, horizon))
+                            _frame_plan(traffic, stream, horizon, script))
     samples: List[dict] = []
-    state = SimpleNamespace(core=None, kept_bytes=0)
+    # keep_events: what a sampled frame keeps after its events, outside
+    # its time (paused_s)
+    state = SimpleNamespace(core=None, kept_bytes=0, keep_events=None, paused_s=0.0)
     # spans only where a profiler reads them
     span = profiling.span if trace else (lambda name: contextlib.nullcontext())
     # the traced sub-window (--trace 1), which keeps no samples
@@ -108,35 +115,44 @@ def run_cell(spec: dict, workload_name: str, seed: int, seconds: float,
     trace_to = trace_from + int(traffic["trace"]["frames"])
 
     def frame(i: int) -> torch.Tensor:
-        if stream.position(i) == 0:
+        position = stream.position(i)
+        if position == 0:
             state.core = InferenceCore(net, cfg)
             if trace:
                 profiling.wrap_steps(state.core)
             if program_hook is not None:
                 program_hook(state.core)
-            with span("step"):
-                prob = state.core.step(video.frame(i), video.mask(i), objects)
-        else:
-            with span("step"):
-                prob = state.core.step(video.frame(i))
+        fr = Frame(video, i, position, setups)
+        script.program(state.core, fr)
+        if state.keep_events is not None:
+            t = time.perf_counter()
+            state.keep_events()
+            state.paused_s += time.perf_counter() - t
+        with span("step"):
+            prob = fr.step(state.core)
         with span("to_host"):
             state.core.output_prob_to_mask(prob)
         return prob
 
     def checked(i: int, timed) -> None:
         """Frame i, and its sample for the check when the plan draws it:
-        the program's state before and after it, and its output, kept
-        outside the timed call."""
+        the program's state before and after it (and, for a frame with
+        events, after them), and its output, kept outside the frame's
+        time."""
         if not plan.wants(i) or (trace and trace_from <= i < trace_to):
             timed(i)
             return
-        first = stream.position(i) == 0
-        before = None if first else check.port_state(state.core)
+        before = None if stream.position(i) == 0 else check.port_state(state.core)
+        s = dict(i=i, kind=plan.kind(i), before=before, events=None)
+        if before is not None and script.at(stream.position(i)):
+            def keep():
+                s["events"] = check.port_state(state.core)
+            state.keep_events = keep
         prob = timed(i)
-        s = dict(i=i, kind=plan.kind(i), first=first, before=before,
-                 prob=prob.detach().clone(), after=check.port_state(state.core))
+        state.keep_events = None
+        s.update(prob=prob.detach().clone(), after=check.port_state(state.core))
         state.kept_bytes += (check.state_bytes(before) + check.state_bytes(s["after"])
-                             + s["prob"].numel() * 4)
+                             + check.state_bytes(s["events"]) + s["prob"].numel() * 4)
         samples.append(s)
 
     for i in range(warmup):
@@ -151,9 +167,10 @@ def run_cell(spec: dict, workload_name: str, seed: int, seconds: float,
 
     def timed(i: int) -> torch.Tensor:
         ta = time.perf_counter()
+        state.paused_s = 0.0
         with span("frame"):
             prob = frame(i)
-        frame_ms.append(1e3 * (time.perf_counter() - ta))
+        frame_ms.append(1e3 * (time.perf_counter() - ta - state.paused_s))
         return prob
 
     i = warmup
@@ -195,20 +212,22 @@ def run_cell(spec: dict, workload_name: str, seed: int, seconds: float,
     ref = check.build_reference(cfg_file["model"], seed, dev)
 
     def reference_steps():
-        return {s["i"]: check.step_reference(ref, core_settings, video, s["i"],
-                                             s["first"], s["before"], objects)
+        return {s["i"]: check.step_reference(
+                    ref, core_settings, script,
+                    Frame(video, s["i"], stream.position(s["i"]), setups), s["before"])
                 for s in samples}
 
     ref_out = reference_steps()
     readings = check.compare(samples, ref_out)
+    readings.update(script.numbers(samples, ref_out))
     correct, shown = check.verdict(readings, limits)
     control_readings = None
     if control:
         with check.precision(ref, "tf32"):
             ctl_out = reference_steps()
         control_readings = check.compare(
-            [dict(s, prob=ctl_out[s["i"]][0], after=ctl_out[s["i"]][1])
-             for s in samples], ref_out)
+            [dict(s, prob=ctl_out[s["i"]][0], after=ctl_out[s["i"]][1],
+                  events=ctl_out[s["i"]][2]) for s in samples], ref_out)
     samples.clear()
     ref_out.clear()
 
@@ -217,15 +236,18 @@ def run_cell(spec: dict, workload_name: str, seed: int, seconds: float,
     hp, wp = -(-h // 16) * 16, -(-w // 16) * 16
     batch = 2 if core_settings.get("flip_aug") else 1
     kind = torch.cuda.get_device_name(dev) if cuda else "cpu"
+    traced = _frame_plan(traffic, stream, trace_to, script)[trace_from:trace_to]
     run = SimpleNamespace(
         setup_s=setup_s, window_s=window_s, frame_ms=frame_ms, trace=trace_obj,
-        traced_frames=_frame_plan(traffic, stream, trace_to)[trace_from:trace_to],
-        core=core_settings, model=cfg_file["model"], objects=len(objects),
+        traced_frames=traced, core=core_settings, model=cfg_file["model"],
         batch=batch, queries=(hp // 16) * (wp // 16),
         value_bytes=2 if core_settings.get("amp") else 4,
         peak=peaks(kind) if cuda else None, stage_flops=None)
     if trace:
-        run.stage_flops = stage_flops(ref, batch, len(objects), hp, wp, dev)
+        # the network's operations at each object count the traced frames use
+        counts = {n for f in traced for n in (f["objects"], f["memorized"]) if n}
+        run.stage_flops = {n: stage_flops(ref, batch, n, hp, wp, dev)
+                           for n in sorted(counts)}
     del ref
 
     kind_key = "per_layer" if trace else "end_to_end"

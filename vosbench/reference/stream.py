@@ -1,16 +1,28 @@
 """Cutie's streaming inference in plain PyTorch: the benchmark's reference.
 
 One ReferenceStream segments one video the way Cutie's InferenceCore does
-(reference cutie/inference/inference_core.py and memory_manager.py), for
-the traffic the benchmark sends: the first frame carries an index mask of
-every object, and every later frame is propagated. It keeps the three
-memories as plain tensors with a leading batch axis (2 under flip_aug):
+(reference cutie/inference/inference_core.py, memory_manager.py and
+kv_memory_store.py), for the traffic the benchmark sends: a frame may carry
+an index mask of some objects, and objects may be deleted before a frame.
+Objects first given in one frame form a bucket, and each bucket keeps its
+own three memories, as plain tensors with a leading batch axis (2 under
+flip_aug):
 
-  - permanent memory: the first frame's tokens;
-  - working memory: a FIFO list of frames, with each frame's selection and
-    usage counters in long-term mode;
+  - permanent memory: the tokens of the frame that gave its objects;
+  - working memory: a FIFO list of the frames memorized since, with each
+    frame's selection and usage counters in long-term mode;
   - long-term memory (use_long_term): prototype tokens appended by
     consolidation, with usage counters, evicted by usage when full.
+
+A memorized frame joins every bucket but the one it creates. A frame reads
+each bucket's memory for that bucket's objects, and fuses them with the
+pixel features and the object memory bucket by bucket, before one decoder
+over every object. A mask that brings new objects is merged with the
+prediction over the objects there already (the mask's pixels taken from
+them), and the frame is memorized; a mask of known objects only replaces
+their prediction and is memorized, unsegmented. A deletion drops the
+objects' values and per-object tensors, and a bucket left empty with all
+its tokens.
 
 The memory read keeps every token whose similarity (Cutie's direct form
 in float32, the value the formula has at that precision) is at or above
@@ -18,6 +30,10 @@ the k-th largest, takes exp in float32 as Cutie does (so weights underflow
 where Cutie's do) and the normalisation and readout in float64; consolidation's full softmax takes the similarity
 in float64. The network is the frozen copy in vosbench/reference/network, in
 float32 with TF32 off (allow_tf32 on is the benchmark's control).
+
+Departures from Cutie: the merge of a mask with the prediction and its
+soft aggregation run on the host in float32, as the first frame's does (Cutie
+runs them on the device; both are float32); masks are index masks only.
 
 Nothing here imports the port (cutie_tpu_torch) or JAX.
 """
@@ -168,9 +184,9 @@ class ReferenceStream:
             self.ring_max = max(int(core["max_mem_frames"]) - 1, 1)
         self.ti = -1
         self.last_mem_ti = 0
-        self.num_objects = 0
-        self.ring: List[dict] = []
-        self.lt = None
+        # object ids in the order of the per-object tensors' axis
+        self.objects: List[int] = []
+        self.buckets: List[dict] = []
         self.consolidations = 0
 
     # -------------------------------------------------------------- state
@@ -184,21 +200,24 @@ class ReferenceStream:
             return {k: v.clone() for k, v in d.items()}
         # copies: the read adds into the usage counters in place
         self.ti, self.last_mem_ti = state["ti"], state["last_mem_ti"]
-        self.num_objects = state["num_objects"]
+        self.objects = list(state["objects"])
         self.sensory, self.obj_v = state["sensory"].clone(), state["obj_v"].clone()
         self.last_mask = state["last_mask"].clone()
-        self.perm = own(state["perm"])
-        self.ring = [own(f) for f in state["ring"]]
-        self.lt = own(state["lt"]) if state["lt"] is not None else None
+        self.buckets = [dict(objects=list(b["objects"]), perm=own(b["perm"]),
+                             ring=[own(f) for f in b["ring"]],
+                             lt=own(b["lt"]) if b["lt"] is not None else None)
+                        for b in state["buckets"]]
 
     def export(self) -> dict:
-        """The state: counters, sensory, object memory, last mask, and the
-        permanent, working (oldest first) and long-term memories; in long-
-        term mode a working frame also holds its selection and usage."""
+        """The state: counters, object ids, sensory, object memory, last
+        mask, and each bucket's objects and its permanent, working (oldest
+        first) and long-term memories; in long-term mode a working frame
+        also holds its selection and usage."""
         return dict(ti=self.ti, last_mem_ti=self.last_mem_ti,
-                    num_objects=self.num_objects, sensory=self.sensory,
-                    obj_v=self.obj_v, last_mask=self.last_mask, perm=self.perm,
-                    ring=self.ring, lt=self.lt)
+                    objects=list(self.objects), sensory=self.sensory,
+                    obj_v=self.obj_v, last_mask=self.last_mask,
+                    buckets=[dict(b, objects=list(b["objects"]), ring=list(b["ring"]))
+                             for b in self.buckets])
 
     # ------------------------------------------------------------ helpers
 
@@ -222,22 +241,30 @@ class ReferenceStream:
         last = prob_no_bg.float()
         self.last_mask = torch.cat([last, last.flip(-1)]) if self.flip else last
 
+    def _span(self, bucket: dict) -> slice:
+        """The bucket's objects on the per-object axis: buckets are made in
+        order and their objects appended, so each is one run of it."""
+        s0 = self.objects.index(bucket["objects"][0])
+        return slice(s0, s0 + len(bucket["objects"]))
+
     # --------------------------------------------------------------- read
 
-    def _read(self, feats) -> torch.Tensor:
-        """The pixel readout [B, O, Cv, h, w]; in long-term mode the usage
-        counters of the working and long-term memories grow."""
+    def _read(self, bucket: dict, feats) -> torch.Tensor:
+        """One bucket's pixel readout [B, Ob, Cv, h, w] for its objects; in
+        long-term mode the usage counters of its working and long-term
+        memories grow."""
         b, ck, h, w = feats["key"].shape
+        perm, lt, ring = bucket["perm"], bucket["lt"], bucket["ring"]
         out = []
         for r in range(b):
-            keys = [self.perm["key"][r]]
-            shr = [self.perm["shrink"][r]]
-            vals = [self.perm["value"][r]]
-            if self.lt is not None:
-                keys.append(self.lt["key"][r])
-                shr.append(self.lt["shrink"][r])
-                vals.append(self.lt["value"][r])
-            for fr in self.ring:
+            keys = [perm["key"][r]]
+            shr = [perm["shrink"][r]]
+            vals = [perm["value"][r]]
+            if lt is not None:
+                keys.append(lt["key"][r])
+                shr.append(lt["shrink"][r])
+                vals.append(lt["value"][r])
+            for fr in ring:
                 keys.append(fr["key"][r])
                 shr.append(fr["shrink"][r])
                 vals.append(fr["value"][r])
@@ -247,17 +274,17 @@ class ReferenceStream:
                                   torch.cat(vals, dim=1), self.top_k)
             out.append(rd)
             if self.long_term:
-                n0 = self.perm["key"].shape[1]
-                if self.lt is not None:
-                    nl = self.lt["key"].shape[1]
-                    self.lt["use"][r] += usage[n0:n0 + nl]
-                    self.lt["life"][r] += 1.0
+                n0 = perm["key"].shape[1]
+                if lt is not None:
+                    nl = lt["key"].shape[1]
+                    lt["use"][r] += usage[n0:n0 + nl]
+                    lt["life"][r] += 1.0
                     n0 += nl
                 hw = h * w
-                for i, fr in enumerate(self.ring):
+                for i, fr in enumerate(ring):
                     fr["use"][r] += usage[n0 + i * hw:n0 + (i + 1) * hw]
                     fr["life"][r] += 1.0
-        rd = torch.stack(out)                                # [B, O, P, Cv]
+        rd = torch.stack(out)                                # [B, Ob, P, Cv]
         return rd.transpose(2, 3).reshape(b, rd.shape[1], rd.shape[3], h, w)
 
     # ------------------------------------------------------------ segment
@@ -265,13 +292,19 @@ class ReferenceStream:
     def _segment(self, feats, update_sensory: bool) -> torch.Tensor:
         net = self.net
         b = feats["key"].shape[0]
-        o = self.num_objects
-        pixel_readout = self._read(feats)
-        fused = net.pixel_fusion(feats["pix_feat"], pixel_readout,
-                                 self.sensory, self.last_mask)
+        o = len(self.objects)
+        mem_readout = []
+        for bucket in self.buckets:
+            span = self._span(bucket)
+            fused = net.pixel_fusion(feats["pix_feat"], self._read(bucket, feats),
+                                     self.sensory[:, span], self.last_mask[:, span])
+            ob = span.stop - span.start
+            r, _ = net.readout_query(fused, self.obj_v[:, span, None],
+                                     selector=torch.ones((b, ob), device=self.device))
+            mem_readout.append(r)
+        mem_readout = (mem_readout[0] if len(mem_readout) == 1
+                       else torch.cat(mem_readout, dim=1))
         selector = torch.ones((b, o), device=self.device)
-        mem_readout, _ = net.readout_query(fused, self.obj_v[:, :, None],
-                                           selector=selector)
         sensory, _, prob = net.segment(feats["ms"], mem_readout, self.sensory,
                                        selector=selector,
                                        update_sensory=update_sensory)
@@ -286,37 +319,44 @@ class ReferenceStream:
 
     # ----------------------------------------------------------- memorize
 
-    def _memorize(self, feats, permanent: bool) -> None:
+    def _memorize(self, feats) -> None:
+        """Every bucket made at this frame takes its tokens as permanent
+        memory; every other one as a working-memory frame."""
         value, sensory, summaries = self.net.encode_mask(
             feats["image"], feats["pix_feat"], self.sensory, self.last_mask,
             deep_update=True)
         self.obj_v = self.obj_v + summaries
         self.sensory = sensory
-        frame = dict(key=_tokens(feats["key"]),
-                     shrink=_tokens(feats["shrinkage"])[..., 0],
-                     value=value.flatten(3).transpose(2, 3).float())   # [B,O,HW,Cv]
-        if permanent:
-            self.perm = frame
-            return
-        b, hw = frame["shrink"].shape
-        frame["sel"] = _tokens(feats["selection"])
-        frame["use"] = torch.zeros((b, hw), dtype=torch.float64, device=self.device)
-        frame["life"] = torch.full((b, hw), 1e-7, dtype=torch.float64,
-                                   device=self.device)
-        self.ring.append(frame)
-        if not self.long_term and len(self.ring) > self.ring_max:
-            self.ring.pop(0)
+        key, shrink = _tokens(feats["key"]), _tokens(feats["shrinkage"])[..., 0]
+        value = value.flatten(3).transpose(2, 3).float()             # [B,O,HW,Cv]
+        b, hw = shrink.shape
+        for bucket in self.buckets:
+            frame = dict(key=key, shrink=shrink, value=value[:, self._span(bucket)])
+            if bucket.pop("new", False):
+                bucket["perm"] = frame
+                continue
+            frame["sel"] = _tokens(feats["selection"])
+            frame["use"] = torch.zeros((b, hw), dtype=torch.float64,
+                                       device=self.device)
+            frame["life"] = torch.full((b, hw), 1e-7, dtype=torch.float64,
+                                       device=self.device)
+            bucket["ring"].append(frame)
+            if not self.long_term and len(bucket["ring"]) > self.ring_max:
+                bucket["ring"].pop(0)
+            elif self.long_term:
+                self._consolidate(bucket)
 
     # -------------------------------------------------------- consolidate
 
-    def _consolidate(self) -> None:
-        """Compress the oldest ring frames into prototypes once the ring
-        holds ring_max frames (memory_manager.py:309-358), evicting
+    def _consolidate(self, bucket: dict) -> None:
+        """Compress the bucket's oldest ring frames into prototypes once its
+        ring holds ring_max frames (memory_manager.py:309-358), evicting
         long-term tokens by usage first when the budget is near."""
-        if len(self.ring) < self.ring_max:
+        ring = bucket["ring"]
+        if len(ring) < self.ring_max:
             return
-        n_cand = len(self.ring) - self.ring_min
-        cand, self.ring = self.ring[:n_cand], self.ring[n_cand:]
+        n_cand = len(ring) - self.ring_min
+        cand, bucket["ring"] = ring[:n_cand], ring[n_cand:]
         key = torch.cat([f["key"] for f in cand], 1)          # [B, Nc, Ck]
         shr = torch.cat([f["shrink"] for f in cand], 1)
         sel = torch.cat([f["sel"] for f in cand], 1)
@@ -334,12 +374,12 @@ class ReferenceStream:
             p_val.append(torch.einsum("pn,onc->opc", aff, val[r].double()).float())
         p_shr, p_val = torch.stack(p_shr), torch.stack(p_val)
 
-        if self.lt is not None and (self.lt["key"].shape[1]
-                                    >= self.max_long_tokens - self.num_prototypes):
+        lt = bucket["lt"]
+        if lt is not None and (lt["key"].shape[1]
+                               >= self.max_long_tokens - self.num_prototypes):
             keep = self.max_long_tokens - self.num_prototypes - self.buffer_tokens
-            kidx = _stable_top(self.lt["use"] / self.lt["life"], keep)
-            lt = self.lt
-            self.lt = dict(
+            kidx = _stable_top(lt["use"] / lt["life"], keep)
+            lt = dict(
                 key=lt["key"].gather(1, kidx[..., None].expand(-1, -1, ck)),
                 shrink=lt["shrink"].gather(1, kidx),
                 value=lt["value"].gather(2, kidx[:, None, :, None].expand(
@@ -350,21 +390,64 @@ class ReferenceStream:
                    use=torch.zeros_like(p_shr, dtype=torch.float64),
                    life=torch.full(p_shr.shape, 1e-7, dtype=torch.float64,
                                    device=self.device))
-        if self.lt is None:
-            self.lt = new
+        if lt is None:
+            bucket["lt"] = new
         else:
-            self.lt = {k: torch.cat([self.lt[k], new[k]], 2 if k == "value" else 1)
-                       for k in new}
+            bucket["lt"] = {k: torch.cat([lt[k], new[k]], 2 if k == "value" else 1)
+                            for k in new}
         self.consolidations += 1
+
+    # -------------------------------------------------------------- events
+
+    def delete_objects(self, objects: List[int]) -> None:
+        """Drop `objects`: their per-object tensors and values, and every
+        bucket left without objects (inference_core.py delete_objects,
+        memory_manager.py purge_except)."""
+        keep = [s for s, o in enumerate(self.objects) if o not in objects]
+        buckets = []
+        for bucket in self.buckets:
+            rows = [j for j, o in enumerate(bucket["objects"]) if o not in objects]
+            if not rows:
+                continue
+
+            def values(mem):
+                return None if mem is None else dict(mem, value=mem["value"][:, rows])
+            buckets.append(dict(objects=[bucket["objects"][j] for j in rows],
+                                perm=values(bucket["perm"]), lt=values(bucket["lt"]),
+                                ring=[values(f) for f in bucket["ring"]]))
+        self.buckets = buckets
+        self.objects = [self.objects[s] for s in keep]
+        self.sensory = self.sensory[:, keep]
+        self.obj_v = self.obj_v[:, keep]
+        self.last_mask = self.last_mask[:, keep]
+
+    def _merge(self, mask_p: np.ndarray, objects: List[int],
+               prob: Optional[torch.Tensor]) -> torch.Tensor:
+        """A padded index mask of `objects` over the prediction prob [O'+1,
+        Hp, Wp] of the objects there before it (None: none): the mask's
+        pixels are taken from the prediction, each given object's channel is
+        its mask, new objects appended; -> probabilities [O+1, Hp, Wp]."""
+        new = [o for o in objects if o not in self.objects]
+        n_before = len(self.objects)
+        self.objects += new
+        onehot = np.stack([(mask_p == obj).astype(np.float32) for obj in objects])
+        out = np.zeros((len(self.objects),) + mask_p.shape, np.float32)
+        if prob is not None:
+            pred = prob[1:n_before + 1].float().cpu().numpy().copy()
+            pred[:, onehot.sum(0) > 0.5] = 0
+            out[:n_before] = pred
+        for obj, m in zip(objects, onehot):
+            out[self.objects.index(obj)] = m
+        return torch.from_numpy(aggregate_wbg_np(out, keep_bg=True)).to(self.device)
 
     # --------------------------------------------------------------- step
 
     @torch.no_grad()
     def step(self, image, mask: Optional[np.ndarray] = None,
              objects: Optional[List[int]] = None) -> torch.Tensor:
-        """image: HWC uint8 (numpy); mask: the first frame's index mask
-        with objects, the object ids in it. Returns the probabilities
-        [O+1, H, W] float32 on the device, background first."""
+        """image: HWC uint8 (numpy); mask: an index mask of `objects`, the
+        object ids given in it. Returns the probabilities [O+1, H, W]
+        float32 on the device, background first."""
         image = torch.from_numpy(np.asarray(image)).to(self.device)
         image = image.permute(2, 0, 1).float() / 255.0
         orig_h, orig_w = image.shape[-2:]
@@ -381,34 +464,35 @@ class ReferenceStream:
         hp, wp = h + lh + uh, w + lw + uw
         feats = self._encode(image, pad)
         b = feats["key"].shape[0]
+        since = self.ti - self.last_mem_ti
 
-        if mask is not None:
-            if self.ti != 0:
-                raise ValueError("the reference takes a mask on the first "
-                                 "frame only")
-            self.num_objects = o = len(objects)
+        if mask is None:
+            prob = self._segment(feats, since in self.stagger_ti)[0]
+            if since >= self.mem_every:
+                self._memorize(feats)
+                self.last_mem_ti = self.ti
+        else:
+            new = [o for o in objects if o not in self.objects]
+            prob = None
+            if self.objects and new:
+                prob = self._segment(feats, since in self.stagger_ti)[0]
             mask_p = np.zeros((hp, wp), np.asarray(mask).dtype)
             mask_p[lh:hp - uh, lw:wp - uw] = mask
-            onehot = np.stack([(mask_p == obj).astype(np.float32)
-                               for obj in objects])
-            prob = torch.from_numpy(aggregate_wbg_np(onehot, keep_bg=True)
-                                    ).to(self.device)
+            prob = self._merge(mask_p, objects, prob)
+            # a new object starts with empty sensory and object memory
             hs, ws = hp // 16, wp // 16
             cs = self.net.model_cfg.sensory_dim
             q = self.net.model_cfg.object_transformer.num_queries
             e = self.net.model_cfg.object_transformer.embed_dim
-            self.sensory = torch.zeros((b, o, cs, hs, ws), device=self.device)
-            self.obj_v = torch.zeros((b, o, q, e + 1), device=self.device)
+            zeros = dict(sensory=torch.zeros((b, len(new), cs, hs, ws), device=self.device),
+                         obj_v=torch.zeros((b, len(new), q, e + 1), device=self.device))
+            for k, z in zeros.items():
+                setattr(self, k, torch.cat([getattr(self, k), z], 1)
+                        if self.buckets else z)
+            if new:
+                self.buckets.append(dict(objects=new, ring=[], lt=None, new=True))
             self._set_last_mask(prob[None, 1:])
-            self._memorize(feats, permanent=True)
-            self.last_mem_ti = 0
-        else:
-            since = self.ti - self.last_mem_ti
-            prob = self._segment(feats, since in self.stagger_ti)[0]
-            if since >= self.mem_every:
-                self._memorize(feats, permanent=False)
-                self.last_mem_ti = self.ti
-                if self.long_term:
-                    self._consolidate()
+            self._memorize(feats)
+            self.last_mem_ti = self.ti
         out = prob[:, lh:hp - uh, lw:wp - uw]
         return bilinear_resize(out, orig_h, orig_w) if resize else out

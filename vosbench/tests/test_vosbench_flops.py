@@ -102,13 +102,15 @@ def test_trace_reduction():
 
 def test_readers():
     t = _trace()
-    frames = [dict(kind="plain", read_tokens=8100, consolidate=False, lt=0),
-              dict(kind="memory", read_tokens=8100, consolidate=False, lt=0)]
+    frames = [dict(kind="plain", event=None, objects=3, reads=[[8100, 3]],
+                   memorized=0, consolidate=False, lt=0),
+              dict(kind="memory", event=None, objects=3, reads=[[8100, 3]],
+                   memorized=3, consolidate=False, lt=0)]
     run = SimpleNamespace(
-        trace=t, traced_frames=frames, peak=H100, queries=1620, objects=3,
+        trace=t, traced_frames=frames, peak=H100, queries=1620,
         batch=1, value_bytes=4, core=specs.traffic("d17")["core"],
         model=specs.config(specs.load_spec(), "cutie-base")["model"],
-        stage_flops={"encode": 1e9, "segment": 2e9, "memorize": 5e8},
+        stage_flops={3: {"encode": 1e9, "segment": 2e9, "memorize": 5e8}},
         frame_ms=[10.0] * 19 + [30.0], window_s=0.25, setup_s=3.5)
     r = lambda name: specs.reader(name)(run)  # noqa: E731
     assert r("fps") == 80.0 and r("setup_s") == 3.5
@@ -122,6 +124,19 @@ def test_readers():
         100 * 2 * 5.125196e-5 / 10e-6)
     total = 2 * 1e9 + 2 * (2e9 + 3_433_881_600) + 5e8
     assert r("frame_mfu") == pytest.approx(100 * total / (200e-6 * 6.7e13))
+    # buckets: each read counts its own tokens and objects, and the network
+    # its frame's object counts (an add frame segments 2, memorizes 3)
+    run.traced_frames = [dict(kind="memory", event="add", objects=2,
+                              reads=[[8100, 1], [3240, 1]], memorized=3,
+                              consolidate=False, lt=0)]
+    run.stage_flops = {2: {"encode": 1e9, "segment": 1.5e9, "memorize": 4e8},
+                       3: {"encode": 1e9, "segment": 2e9, "memorize": 5e8}}
+    reads = [flops.read_ops(1620, n, 64, 30, 1, 256) for n in (8100, 3240)]
+    assert r("frame_mfu") == pytest.approx(
+        100 * (1e9 + 5e8 + 1.5e9 + sum(reads)) / (200e-6 * 6.7e13))
+    bound = sum(flops.read_bound_s(o, flops.read_bytes(1620, n, 64, 1, 256), H100)
+                for o, n in zip(reads, (8100, 3240)))
+    assert r("radix_topk_readout_roofline") == pytest.approx(100 * bound / 10e-6)
     run.trace = None
     assert r("frame_mfu") is None and r("device.idle_pct") is None
 

@@ -19,6 +19,16 @@ ROOT = Path(__file__).resolve().parents[2]
 SPEC = specs.load_spec()
 
 
+def tiny_events(traffic, clip):
+    """The traffic's events with their positions scaled from its clip to
+    `clip` frames ({} for a traffic without events)."""
+    if "events" not in traffic:
+        return {}
+    scale = clip / traffic["clip_frames"]
+    return {"events": [dict(ev, at=round(ev["at"] * scale))
+                       for ev in traffic["events"]]}
+
+
 def _overrides(workload):
     traffic = specs.traffic(specs.workload(SPEC, workload)["traffic"])
     # min_fps: a rate this CPU keeps at 64x96, so the window reaches every
@@ -32,6 +42,11 @@ def _overrides(workload):
                                  max_num_tokens=64, buffer_tokens=16)
         over.update(core=core, warmup_frames=30,
                     trace={"start_frame": 2, "frames": 6})
+    elif "events" in traffic:
+        # events at 0, 2, 4 and 13 of 16; the traced frames in the second clip
+        over.update(clip_frames=16, warmup_frames=16,
+                    trace={"start_frame": 24, "frames": 4},
+                    **tiny_events(traffic, 16))
     else:
         # the traced frames in the second clip, as in the d17 traffic
         over.update(clip_frames=12, warmup_frames=12,
@@ -53,6 +68,14 @@ def test_cpu_run_is_correct():
         "correct", "attempted", "failed", "metrics", "device"]
     assert set(r["metrics"]) == {"fps", "frame_ms.p95", "setup_s"}
     assert r["attempted"] > 12 and r["failed"] == 0
+
+
+def test_cpu_run_with_events_is_correct():
+    """Objects added and deleted: every kind of frame is checked, and the
+    state after a deletion is the reference's to the bit."""
+    r = _run("base.adddel720", seconds=6.0)
+    assert r["correct"], r["check"]
+    assert r["check"]["event_state_mismatch"]["value"] == 0
 
 
 def test_cpu_long_term_run_is_correct():
@@ -109,31 +132,82 @@ def _answer_altered(core):
 
     def altered(*a, **k):
         prob = step(*a, **k).clone()
-        prob[[1, 2]] = prob[[2, 1]]
+        # two objects' channels swapped; with one object, it and background
+        swap = [1, 2] if prob.shape[0] > 2 else [0, 1]
+        prob[swap] = prob[swap[::-1]]
         return prob
     core.step = altered
+
+
+def _new_objects_not_permanent(core):
+    """A mask's new objects join the working memory, as the others do,
+    where they should get permanent memory of their own."""
+    memorize = core.steps.memorize
+
+    def ring_only(*a, mode, **k):
+        memorize(*a, mode="no" if mode == "split" else mode, **k)
+    core.steps.memorize = ring_only
+
+
+def _one_read_for_all_buckets(core):
+    """Every object reads the first bucket's tokens."""
+    core._buckets = lambda: ((0,), torch.ones((1, core.state.num_objects)))
+
+
+def _deletion_ignored(core):
+    core.delete_objects = lambda objects: None
+
+
+def _deletion_scrambled(core):
+    """After a deletion the first two objects left hold each other's
+    permanent values (shapes and counters as they should be)."""
+    delete = core.delete_objects
+
+    def scrambled(objects):
+        delete(objects)
+        v = core.state.perm_value
+        v[:, [0, 1]] = v[:, [1, 0]].clone()
+    core.delete_objects = scrambled
 
 
 FAULTS = {"state_unchanged": _memorize_unchanged,
           "half_left_out": _half_the_queries_read_nothing,
           "answer_altered": _answer_altered,
           "memory_values_altered": _memory_values_altered,
-          "consolidation_altered": _consolidation_altered}
+          "consolidation_altered": _consolidation_altered,
+          "new_objects_not_permanent": _new_objects_not_permanent,
+          "one_read_for_all_buckets": _one_read_for_all_buckets,
+          "deletion_ignored": _deletion_ignored,
+          "deletion_scrambled": _deletion_scrambled}
+EVENT_FAULTS = ("new_objects_not_permanent", "one_read_for_all_buckets",
+                "deletion_ignored", "deletion_scrambled")
 
 
-def _long_term(wl):
-    return specs.traffic(specs.workload(SPEC, wl)["traffic"])["core"]["use_long_term"]
+def _traffic_of(wl):
+    return specs.traffic(specs.workload(SPEC, wl)["traffic"])
+
+
+def _cell_can_have(fault, wl):
+    if fault == "consolidation_altered":
+        return _traffic_of(wl)["core"]["use_long_term"]
+    if fault in EVENT_FAULTS:
+        return "events" in _traffic_of(wl)
+    return True
 
 
 @pytest.mark.parametrize("fault,wl", [
     pytest.param(FAULTS[f], w["name"], id=f"{f}-{w['name']}")
-    for f in FAULTS for w in SPEC["workloads"]
-    if f != "consolidation_altered" or _long_term(w["name"])])
+    for f in FAULTS for w in SPEC["workloads"] if _cell_can_have(f, w["name"])])
 def test_broken_timed_path_is_not_correct(fault, wl):
     """Each fault a one-card cell can have (no exchange between cards
     exists to leave out), and a fault of one kind of frame alone: memory
-    frames' values, and in long-term mode consolidation's prototypes."""
-    r = _run(wl, seconds=4.0 if wl == "base.lvos" else 3.0, hook=fault)
+    frames' values, in long-term mode consolidation's prototypes, and where
+    objects are added and deleted, the new bucket's permanent memory, the
+    read a bucket and the deletion (left out, or its values moved wrong)."""
+    # long enough for the window to reach the long-term mix's first
+    # consolidation, or the deletion of the mix with events
+    seconds = 4.0 if wl == "base.lvos" else 6.0 if "events" in _traffic_of(wl) else 3.0
+    r = _run(wl, seconds=seconds, hook=fault)
     assert not r["correct"], r["check"]
 
 

@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from vosbench import check, schedule, spec as specs
+from vosbench.events import Frame, Script
 from vosbench.harness import port_config
 from vosbench.reference.stream import ReferenceStream
 from vosbench.video import SyntheticVideo
@@ -82,28 +83,34 @@ def test_reference_resizes_as_the_port():
 def test_control_fails_the_limits(wl):
     """The reference at TF32 (emulated on the CPU) in the program's place,
     one step from each state of a float32 reference stream over 16 frames
-    of the cell's own settings at 64x96: a number has to exceed its limit."""
-    traffic = specs.traffic(wl["traffic"])
+    of the cell's own settings and events (their positions scaled to the
+    16 frames) at 64x96: a number has to exceed its limit."""
+    from vosbench.tests.test_vosbench_harness import tiny_events
+
+    traffic = dict(specs.traffic(wl["traffic"]), **tiny_events(
+        specs.traffic(wl["traffic"]), 16))
     core = _core(wl["traffic"])
     model_cfg = specs.config(SPEC, wl["config"])["model"]
     video = SyntheticVideo(_small(traffic, (64, 96)), 11)
-    objects = list(range(1, traffic["objects"] + 1))
+    script = Script(traffic)
     net = check.build_reference(model_cfg, 11, "cpu")
     torch.set_num_threads(2)
     stream, befores = ReferenceStream(net, core), []
     for i in range(16):
         befores.append(None if i == 0 else stream.export())
-        stream.step(*((video.frame(i), video.mask(i), objects) if i == 0
-                      else (video.frame(i),)))
+        fr = Frame(video, i, i, {})
+        script.reference(stream, fr)
+        fr.step(stream)
     steps = range(1, 16)
     tokens = schedule.tokens_per_frame(64, 96)
-    kinds = [check.kind_of(f) for f in schedule.video_schedule(core, tokens, 16)]
-    ref_out = {i: check.step_reference(net, core, video, i, False, befores[i], objects)
+    kinds = [check.kind_of(f) for f in schedule.video_schedule(core, tokens, 16, script)]
+    ref_out = {i: check.step_reference(net, core, script, Frame(video, i, i, {}),
+                                       befores[i])
                for i in steps}
     with check.precision(net, "tf32"):
         ctl = [dict(i=i, kind=kinds[i], prob=p, after=a) for i in steps
-               for p, a in [check.step_reference(net, core, video, i, False,
-                                                 befores[i], objects)]]
+               for p, a, _ in [check.step_reference(net, core, script,
+                                                    Frame(video, i, i, {}), befores[i])]]
     correct, shown = check.verdict(check.compare(ctl, ref_out),
                                    specs.limits(wl["name"]))
     assert not correct, shown

@@ -1,7 +1,8 @@
 """The one traffic generator: a seeded synthetic video from a traffic file.
 
 A traffic file (vosbench/traffic/<name>.json) gives the frame size, the
-number of objects, how the stream is cut into videos (clip_frames; null for
+objects drawn (`objects`: a count, or {"drawn": count} where events,
+vosbench/events, say when each is given), how the stream is cut into videos (clip_frames; null for
 one continuous video), the warm-up, the InferenceCore settings ("core"),
 the video's look ("video"), the traced sub-window ("trace") and what the
 correctness check samples ("check").
@@ -28,6 +29,12 @@ import numpy as np
 SEED_MASK = (1 << 64) - 1
 
 
+def drawn_objects(traffic: dict) -> int:
+    """The number of objects a traffic file's video draws."""
+    objects = traffic["objects"]
+    return int(objects["drawn"] if isinstance(objects, dict) else objects)
+
+
 def rng_for(seed: int, *stream: int) -> np.random.Generator:
     """An independent numpy generator for (seed, stream...); any integer
     seed, negative or wider than 64 bits included."""
@@ -41,7 +48,7 @@ class SyntheticVideo:
     def __init__(self, traffic: dict, seed: int):
         h, w = traffic["frame"]
         self.h, self.w = h, w
-        self.num_objects = n = int(traffic["objects"])
+        self.num_objects = n = drawn_objects(traffic)
         self.pool_frames = p = int(traffic["pool_frames"])
         look = traffic["video"]
         self.jitter = jit = int(look["jitter_rows"])
