@@ -8,6 +8,8 @@ resizes with align_corners=True.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -73,14 +75,22 @@ def align_corners_matrix(n_in: int, n_out: int) -> np.ndarray:
     return m
 
 
+@functools.lru_cache(maxsize=64)
+def _device_matrix(n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
+    """align_corners_matrix on `device`, uploaded once a shape: an upload
+    from pageable host memory waits for the card's queue to drain, and an
+    L-BFGS search resizes at one shape on every evaluation."""
+    return torch.from_numpy(align_corners_matrix(n_in, n_out)).to(device)
+
+
 def bilinear_resize_align_corners_mm(x: torch.Tensor, out_h: int, out_w: int
                                      ) -> torch.Tensor:
     """The same resize as two fp32 matmuls over [..., H, W] (the weights of
     bilinear_resize_align_corners up to summation order). Its backward is two
     matmuls again, with no scatter: the f-BRS objective differentiates it on
     every L-BFGS evaluation."""
-    wy = torch.from_numpy(align_corners_matrix(x.shape[-2], out_h)).to(x.device)
-    wx = torch.from_numpy(align_corners_matrix(x.shape[-1], out_w)).to(x.device)
+    wy = _device_matrix(x.shape[-2], out_h, x.device)
+    wx = _device_matrix(x.shape[-1], out_w, x.device)
     with torch.autocast(x.device.type, enabled=False):
         return wy @ x.float() @ wx.T
 

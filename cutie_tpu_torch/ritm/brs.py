@@ -37,6 +37,7 @@ from cutie_tpu_torch.ops.resize import (bilinear_resize_align_corners,
                                         bilinear_resize_align_corners_mm)
 from cutie_tpu_torch.ritm.inference import Click, Predictor, pad_hw, pad_to
 from cutie_tpu_torch.ritm.lbfgs import lbfgs_drive
+from cutie_tpu_torch.utils.tracing import span
 
 DEFAULT_LBFGS_PARAMS = {"m": 20, "factr": 0, "pgtol": 1e-8, "maxfun": 20,
                         "maxiter": 40}
@@ -47,8 +48,10 @@ class ScaleBiasOptimizer:
     scipy's L-BFGS calls: x (float64) -> [loss, gradient], with a zero
     gradient, which ends the search, once the clicks are satisfied or the
     mask has stopped changing. n_evals counts the evaluations of a click,
-    on either driver; drive_info is the device drive's last report
-    (lbfgs_drive's info)."""
+    scipy's or the drive's; best_x is the point of the evaluation whose logits a
+    click returns (best_prediction: host float32 from scipy, a tensor on
+    the device from the drive); drive_info is the device drive's last
+    report (lbfgs_drive's info without best_x)."""
 
     def __init__(self, optimizer_params=None, prob_thresh=0.49, reg_weight=1e-3,
                  min_iou_diff=0.01, with_flip=False, flip_average=False,
@@ -64,6 +67,7 @@ class ScaleBiasOptimizer:
         self.scale_act = scale_act
         self.reg_bias_weight = reg_bias_weight
         self.best_prediction = None
+        self.best_x = None
         self.n_evals = 0
         self.drive_info = None
         self._eval = None
@@ -74,6 +78,7 @@ class ScaleBiasOptimizer:
         """eval_fn(x float64) -> (loss, grad, logits, f_max_pos, f_max_neg),
         tensors on the model's device."""
         self.best_prediction = None
+        self.best_x = None
         self.n_evals = 0
         self._eval = eval_fn
         self._best_loss = None
@@ -85,6 +90,7 @@ class ScaleBiasOptimizer:
         f_val, f_max_pos, f_max_neg = torch.stack([loss, f_max_pos, f_max_neg]).tolist()
         if self.best_prediction is None or f_val < self._best_loss:
             self.best_prediction = logits
+            self.best_x = np.asarray(x, np.float32).copy()
             self._best_loss = f_val
 
         # clicks already satisfied: a zero gradient stops L-BFGS
@@ -179,9 +185,10 @@ def padded_click_maps(clicks_lists, h, w, hp, wp, device):
 def _value_and_grad(objective, xv: np.ndarray, device):
     """objective(x) -> (loss, low-resolution logits, logits, f_max_pos,
     f_max_neg) at the float64 host vector xv -> (loss, its gradient by
-    autograd, logits, f_max_pos, f_max_neg)."""
+    autograd, logits, f_max_pos, f_max_neg). One call is one span
+    ritm.brs.evaluate."""
     x = torch.from_numpy(np.asarray(xv, np.float32)).to(device).requires_grad_()
-    with torch.enable_grad():
+    with span("ritm.brs.evaluate"), torch.enable_grad():
         loss, _, logits, fmp, fmn = objective(x)
         grad, = torch.autograd.grad(loss, x)
     return loss.detach(), grad, logits.detach(), fmp.detach(), fmn.detach()
@@ -263,6 +270,7 @@ class _BRSPredictor(Predictor):
             _drive_objective(objective), self._opt_tensor(),
             maxfun=int(f.optimizer_params.get("maxfun", 20)), thresh=f.prob_thresh,
             min_iou_diff=f.min_iou_diff, info=f.drive_info)
+        f.best_x = f.drive_info.pop("best_x")
         return bilinear_resize_align_corners(best_low[:, None], hp, wp)
 
     def _optimise(self, objective):

@@ -21,6 +21,7 @@ pixel), so the port pads as cutie_tpu does.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from copy import deepcopy
 from typing import List, Optional, Tuple
@@ -30,6 +31,7 @@ import torch
 from scipy.ndimage import distance_transform_edt
 
 from cutie_tpu_torch.ops.resize import bilinear_resize_align_corners
+from cutie_tpu_torch.utils.tracing import span
 
 PAD_MULTIPLE = 64
 
@@ -69,6 +71,23 @@ def distance_transform(mask: np.ndarray) -> np.ndarray:
     return distance_transform_edt(mask).astype(np.float32)
 
 
+def box_distance_transform(mask: np.ndarray, box, padding: bool = True) -> np.ndarray:
+    """distance_transform(mask) (of np.pad(mask, 1), cropped back, with
+    padding) over box = (r0, r1, c0, c1), which holds every nonzero pixel
+    of mask. It is computed on the box and a rim of one pixel around it,
+    where the image has one: every pixel outside the box is 0, so a pixel's
+    nearest 0 outside the rim is never nearer than the rim pixel between
+    them (the nearest 0 clamped into the rimmed box), and the values are
+    those of the whole image's."""
+    r0, r1, c0, c1 = box
+    if padding:
+        return distance_transform(np.pad(mask[r0:r1, c0:c1], 1))[1:-1, 1:-1]
+    h, w = mask.shape
+    lr, lc = max(r0 - 1, 0), max(c0 - 1, 0)
+    dt = distance_transform(mask[lr:min(r1 + 1, h), lc:min(c1 + 1, w)])
+    return dt[r0 - lr:r1 - lr, c0 - lc:c1 - lc]
+
+
 class Clicker:
     """(clicker.py:6-105)"""
 
@@ -93,22 +112,27 @@ class Clicker:
         return self.clicks_list[:clicks_limit]
 
     def _get_next_click(self, pred_mask, padding=True) -> Click:
+        """The click of clicker.py:47-70. Both distance maps are 0 outside
+        the error regions' bounding box, so they are computed on the box
+        alone (box_distance_transform), with the same values."""
         fn_mask = self.gt_mask & ~pred_mask & self.not_ignore_mask
         fp_mask = ~self.gt_mask & pred_mask & self.not_ignore_mask
-        if padding:
-            fn_mask = np.pad(fn_mask, 1)
-            fp_mask = np.pad(fp_mask, 1)
-        fn_dt = distance_transform(fn_mask)
-        fp_dt = distance_transform(fp_mask)
-        if padding:
-            fn_dt = fn_dt[1:-1, 1:-1]
-            fp_dt = fp_dt[1:-1, 1:-1]
-        fn_dt = fn_dt * self.not_clicked_map
-        fp_dt = fp_dt * self.not_clicked_map
+        errors = fn_mask | fp_mask
+        rows, cols = np.flatnonzero(errors.any(1)), np.flatnonzero(errors.any(0))
+        if rows.size == 0:
+            # both maps all 0: the first pixel of the negative map
+            return Click(is_positive=False, coords=(0, 0))
+        box = (rows[0], rows[-1] + 1, cols[0], cols[-1] + 1)
+        not_clicked = self.not_clicked_map[box[0]:box[1], box[2]:box[3]]
+        fn_dt = box_distance_transform(fn_mask, box, padding) * not_clicked
+        fp_dt = box_distance_transform(fp_mask, box, padding) * not_clicked
         is_positive = fn_dt.max() > fp_dt.max()
         dt = fn_dt if is_positive else fp_dt
+        if dt.max() == 0:
+            return Click(is_positive=bool(is_positive), coords=(0, 0))
         ys, xs = np.where(dt == dt.max())
-        return Click(is_positive=bool(is_positive), coords=(int(ys[0]), int(xs[0])))
+        return Click(is_positive=bool(is_positive),
+                     coords=(int(box[0] + ys[0]), int(box[2] + xs[0])))
 
     def add_click(self, click: Click):
         click.indx = self.click_indx_offset + self.num_pos_clicks + self.num_neg_clicks
@@ -434,7 +458,8 @@ class Predictor:
                                       clicks_lists=clicks_lists)
         prediction = bilinear_resize_align_corners(pred_logits, *image_nd.shape[2:])
         for t in reversed(self.transforms):
-            prediction = t.inv_transform(prediction)
+            with self._span_of(t):
+                prediction = t.inv_transform(prediction)
         if self.zoom_in is not None and self.zoom_in.check_possible_recalculation():
             return self._predict(clicker)
         self.prev_prediction = prediction
@@ -450,8 +475,14 @@ class Predictor:
 
     def _apply_transforms(self, image_nd, clicks_lists):
         for t in self.transforms:
-            image_nd, clicks_lists = t.transform(image_nd, clicks_lists)
+            with self._span_of(t):
+                image_nd, clicks_lists = t.transform(image_nd, clicks_lists)
         return image_nd, clicks_lists
+
+    def _span_of(self, t: BaseTransform):
+        """The span ritm.zoom_in around the zoom-in's transform and inverse;
+        the other transforms run in their caller's span."""
+        return span("ritm.zoom_in") if t is self.zoom_in else contextlib.nullcontext()
 
     def _get_points_nd(self, clicks_lists) -> torch.Tensor:
         """[B, 2 * K, 3]: each list's positive clicks, then its negative ones,

@@ -18,7 +18,16 @@ scale_by_zoom_linesearch's default and not lbfgs's own default line search.
     (s, y) pairs with rho = 1 / <s, y>, 0 where <s, y> == 0, the first
     update's pair masked out, the two-loop recursion in optax's order
     (newest pair first, then oldest first), gamma = <s, y> / <y, y>, and
-    min(1, 1 / |g|) on the first update;
+    1 / |g| on the first update, a step one long: scipy's L-BFGS-B (which
+    upstream f-BRS runs) takes its first step so. optax caps that
+    scale at 1, and so does cutie_tpu's drive: where a click's sigmoid
+    saturates, |g| is ~1e-4 or less, the capped first line search moves x
+    by at most 2^7 |g|, the mask does not change and the IoU exit ends the
+    search where it began (the benchmark's ritm.click720 found a click's
+    objective left at its start where scipy's reaches a tenth of it). Where
+    |g| >= 1 the two are the same step, and L-BFGS with this line search
+    does not see the objective's scale, so where |g0| < 1 the drive takes
+    the steps cutie_tpu's takes on f / |g0| (tests/test_torch_lbfgs.py);
   - _ZoomLinesearch (optax/_src/linesearch.py:576-1330): the interval
     search, the zoom with cubic and quadratic interpolation and their
     safeguards, the approximate-Wolfe decrease, and the safe step when the
@@ -38,6 +47,8 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+from cutie_tpu_torch.utils.tracing import span
 
 MEMORY_SIZE = 20
 MAX_LINESEARCH_STEPS = 8
@@ -64,9 +75,10 @@ class HostReads:
 
 def value_and_grad(objective, x: torch.Tensor):
     """objective(x) -> (value, aux) at x, with d value / d x by autograd.
-    -> (value, grad, aux), all detached."""
+    -> (value, grad, aux), all detached. One call is one span
+    ritm.brs.evaluate."""
     x = x.detach().requires_grad_()
-    with torch.enable_grad():
+    with span("ritm.brs.evaluate"), torch.enable_grad():
         value, aux = objective(x)
         grad, = torch.autograd.grad(value, x)
     return value.detach(), grad, tuple(a.detach() for a in aux)
@@ -99,8 +111,10 @@ class _LBFGS:
             gamma = torch.where(yy > 0, sy / yy, torch.ones_like(sy))
         else:
             # the first update: its pair is masked out (zero, as the memory
-            # starts), and the scale is a capped reciprocal of |g|
-            gamma = torch.clamp(1.0 / grad.square().sum().sqrt(), max=1.0)
+            # starts), and the step is one long, as scipy's L-BFGS-B takes
+            # it (optax caps the scale at 1; see the module docstring)
+            norm = grad.square().sum().sqrt()
+            gamma = torch.where(norm > 0, 1.0 / norm, torch.ones_like(norm))
         # The pairs of updates 1..count sit in slots 0..count-1 (mod m); a
         # zero slot leaves the vector as it is (alpha = beta = 0), so only
         # the written ones are visited, newest first.
@@ -300,7 +314,16 @@ def lbfgs_drive(objective: Callable, x0: torch.Tensor, *, maxfun: int, thresh: f
     ends with one more objective(x) for the exits and the best loss (strict
     <). -> (x, best_track, n_evals). info, if given, receives the exit
     ('clicks', 'iou' or 'maxfun'), the iterations, each line search's steps
-    and branches, and the host reads."""
+    and branches, the host reads, best_x, the point of best_track (x0 or an
+    iteration's end; a tensor on the device), and last_step, the last
+    iteration's start and end (the two points whose masks the IoU exit
+    compares; None without an iteration). One call is one span
+    ritm.lbfgs.drive."""
+    with span("ritm.lbfgs.drive"):
+        return _drive(objective, x0, maxfun, thresh, min_iou_diff, info)
+
+
+def _drive(objective, x0, maxfun, thresh, min_iou_diff, info):
     dt = np.float64 if x0.dtype == torch.float64 else np.float32
     reads = HostReads()
 
@@ -314,8 +337,10 @@ def lbfgs_drive(objective: Callable, x0: torch.Tensor, *, maxfun: int, thresh: f
     value, grad, (best_track, last_mask, fmp, fmn) = vg(x)
     value, fmp, fmn = reads.fetch(value, fmp, fmn)
     value = best_loss = dt(value)
+    best_x = x
     exit_reason = "clicks" if clicks_ok(fmp, fmn) else None
     lbfgs, stepsize, evals, ls_steps, ls_trace = _LBFGS(x), dt(1.0), 0, [], []
+    last_step = None
     while exit_reason is None and evals < maxfun:
         if not np.isfinite(value):   # optax.value_and_grad_from_state
             value, grad, _ = vg(x)
@@ -323,13 +348,14 @@ def lbfgs_drive(objective: Callable, x0: torch.Tensor, *, maxfun: int, thresh: f
         direction = lbfgs.direction(grad, x)
         ls = _ZoomLinesearch(vg, reads, dt, x, direction, value, grad, stepsize)
         stepsize, value, grad = ls.run()
-        x = x + direction * float(stepsize)
+        last_step = (x, x + direction * float(stepsize))
+        x = last_step[1]
         with torch.no_grad():
             loss, (track, mask, fmp, fmn) = objective(x)
             inter, union = (mask & last_mask).sum(), (mask | last_mask).sum()
         loss, fmp, fmn, inter, union = reads.fetch(loss, fmp, fmn, inter, union)
         if dt(loss) < best_loss:
-            best_loss, best_track = dt(loss), track.detach()
+            best_loss, best_track, best_x = dt(loss), track.detach(), x
         iou_ok = union > 0 and dt(inter) / dt(max(union, 1)) > dt(1 - min_iou_diff)
         if clicks_ok(fmp, fmn):
             exit_reason = "clicks"
@@ -342,5 +368,5 @@ def lbfgs_drive(objective: Callable, x0: torch.Tensor, *, maxfun: int, thresh: f
     if info is not None:
         info.update(exit=exit_reason or "maxfun", iterations=len(ls_steps),
                     linesearch_steps=ls_steps, linesearch_trace=ls_trace,
-                    host_reads=reads.count)
+                    host_reads=reads.count, best_x=best_x, last_step=last_step)
     return x, best_track, evals

@@ -23,6 +23,7 @@ from cutie_tpu_torch.models.layers import FrozenBatchNorm
 from cutie_tpu_torch.ops.resize import bilinear_resize_align_corners
 from cutie_tpu_torch.ritm.dist_maps import encode_clicks
 from cutie_tpu_torch.ritm.hrnet import HighResolutionNet
+from cutie_tpu_torch.utils.tracing import span
 
 MEAN = (0.485, 0.456, 0.406)
 STD = (0.229, 0.224, 0.225)
@@ -143,16 +144,17 @@ class HRNetISModel(ClickEncoder):
         return result
 
     def low_res_instances(self, image, points):
-        """The logits before the upsample: [B, 1, H/4, W/4] fp32."""
-        with self.autocast(image):
+        """The logits before the upsample: [B, 1, H/4, W/4] fp32 (span
+        ritm.backbone: HRNet and its OCR head)."""
+        with span("ritm.backbone"), self.autocast(image):
             out, _ = self.feature_extractor(*self._stem_inputs(image, points))
         return out.float()
 
     def get_head_input(self, image, points, insertion_mode: str = "A"):
         """The f-BRS feature cache (brs.py:229-252): 'A' the aggregated
         multi-resolution features (before OCR), 'C' the OCR features
-        (before cls_head)."""
-        with self.autocast(image):
+        (before cls_head). One span ritm.backbone."""
+        with span("ritm.backbone"), self.autocast(image):
             feats = self.feature_extractor.backbone(*self._stem_inputs(image, points))
             if insertion_mode == "C":
                 feats, _ = self.feature_extractor.head_ocr(feats)

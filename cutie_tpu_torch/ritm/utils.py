@@ -15,6 +15,7 @@ from cutie_tpu_torch.ritm.inference import InteractiveController
 from cutie_tpu_torch.ritm.model import HRNetISModel
 from cutie_tpu_torch.ritm.weight_import import load_ritm_checkpoint, state_dict_tensors
 from cutie_tpu_torch.utils.get_default_model import set_fp32_precision
+from cutie_tpu_torch.utils.tracing import span
 
 HRNET_KEYS = ("width", "ocr_width", "small", "with_prev_mask", "use_disks",
               "norm_radius", "use_rgb_conv", "use_leaky_relu")
@@ -113,12 +114,13 @@ class ClickController:
     def interact(self, image: np.ndarray, x: int, y: int, is_positive: bool,
                  prev_mask: Optional[np.ndarray] = None) -> np.ndarray:
         """image: [C, H, W] float in [0, 1]. Returns probabilities
-        [1, 1, H, W] (numpy)."""
-        if not self.anchored:
-            self.controller.set_image(image)
-            self.controller.reset_predictor()
-            self.anchored = True
-        return self.controller.add_click(x, y, is_positive, prev_mask=prev_mask)
+        [1, 1, H, W] (numpy). One call is one span ritm.click."""
+        with span("ritm.click"):
+            if not self.anchored:
+                self.controller.set_image(image)
+                self.controller.reset_predictor()
+                self.anchored = True
+            return self.controller.add_click(x, y, is_positive, prev_mask=prev_mask)
 
     def undo(self) -> Optional[np.ndarray]:
         self.controller.undo_click()

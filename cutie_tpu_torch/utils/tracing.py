@@ -22,6 +22,12 @@ the card, models.pixel_fusion, models.object_transformer,
 models.mask_decoder), inference_core.merge_mask, steps.memorize
 (models.mask_encoder) and steps.consolidate; inference_core.to_host is
 output_prob_to_mask, outside the step.
+
+A click of the RITM click model is one "cutie.ritm.click" span
+(ClickController.interact); below it sit ritm.zoom_in (the zoom-in's
+crop and its inverse), ritm.backbone (HRNet with its OCR head, or the
+features f-BRS reuses), ritm.lbfgs.drive (the device L-BFGS drive), and in
+it one ritm.brs.evaluate a forward and backward of the f-BRS objective.
 """
 from __future__ import annotations
 

@@ -144,6 +144,41 @@ def test_edt_click_matches_cv2():
     assert ulp_broken <= 0.01 * clicks, (ulp_broken, clicks)
 
 
+@pytest.mark.parametrize("padding", [True, False])
+def test_click_on_the_error_box_matches_the_whole_image(padding):
+    """Clicker._get_next_click, which takes the distance maps over the
+    error regions' bounding box, against the same maps over the whole
+    image (clicker.py's way): the same click, bit for bit, on 300 seeded
+    mask pairs, four clicks each (ignored and clicked pixels, pred equal
+    to the truth, speckled preds, regions touching the border)."""
+    def whole_image_click(clicker, pred):
+        maps = []
+        for mask in (clicker.gt_mask & ~pred & clicker.not_ignore_mask,
+                     ~clicker.gt_mask & pred & clicker.not_ignore_mask):
+            dt = inference.distance_transform(np.pad(mask, 1) if padding else mask)
+            maps.append((dt[1:-1, 1:-1] if padding else dt) * clicker.not_clicked_map)
+        is_positive = maps[0].max() > maps[1].max()
+        dt = maps[0] if is_positive else maps[1]
+        ys, xs = np.where(dt == dt.max())
+        return bool(is_positive), (int(ys[0]), int(xs[0]))
+
+    rng = np.random.default_rng(1)
+    for case in range(300):
+        h, w = rng.integers(5, 80, size=2)
+        gt, pred = _blob(rng, h, w), _blob(rng, h, w)
+        if case % 7 == 0:
+            pred = gt.copy()
+        if case % 11 == 0:
+            pred = rng.random((h, w)) < 0.5
+        gt_mask = gt.astype(np.int32)
+        gt_mask[rng.random((h, w)) < 0.02] = -1   # ignored pixels
+        clicker = inference.Clicker(gt_mask)
+        for _ in range(4):
+            click = clicker._get_next_click(pred, padding)
+            assert (click.is_positive, click.coords) == whole_image_click(clicker, pred), case
+            clicker.add_click(click)
+
+
 def test_transforms_match_cutie_tpu():
     """LimitLongestSide, ZoomIn (ROI from the previous probabilities) and
     the flip, forward and inverse, against cutie_tpu's host cascade."""
@@ -315,15 +350,31 @@ def test_undo_restores_device_opt_data(models):
 
 
 @pytest.mark.slow
-def test_device_drive_matches_cutie_tpu_device_drive(models, fbrs_device_run):
+def test_device_drive_matches_cutie_tpu_device_drive(models, fbrs_device_run,
+                                                      monkeypatch):
     """The port's device drive against cutie_tpu's device_lbfgs_drive (its
     default path) on fbrs_runs' clicks, through both InteractiveControllers.
     Compiling cutie_tpu's drive over the RITM model takes minutes, so the
     test is marked slow. Both run the same L-BFGS in fp32 on features that
     differ by float rounding: measured, the probabilities within 1.2e-7 and
-    the scale/bias vectors within 3.6e-7 (required: 1e-5), masks equal."""
+    the scale/bias vectors within 3.6e-7 (required: 1e-5), masks equal.
+    The port's first step is one long (scipy's, tests/test_torch_lbfgs.py),
+    so cutie_tpu's drive runs on the objective over |g0| where |g0| < 1,
+    which takes the same steps."""
+    from cutie_tpu.ritm import brs as flax_brs
     from cutie_tpu.ritm.inference import InteractiveController as FlaxController
 
+    drive = flax_brs.device_lbfgs_drive
+
+    def unit_first_step(objective, x0, **kwargs):
+        g0 = jnp.linalg.norm(jax.grad(lambda x: objective(x)[0])(x0))
+        c = jnp.where(g0 < 1, 1 / g0, jnp.ones_like(g0))
+
+        def scaled(x):
+            value, aux = objective(x)
+            return value * c, aux
+        return drive(scaled, x0, **kwargs)
+    monkeypatch.setattr(flax_brs, "device_lbfgs_drive", unit_first_step)
     _, flax_model, variables = models
     ctl, q1, q2 = fbrs_device_run
     theirs = FlaxController(flax_model, variables, FBRS)
