@@ -16,7 +16,17 @@ Phases, each printing one JSON line with its wall seconds:
              timed its convolutions in every step (cudnn_timing.steps), and
              the kernel is held to its plain version again on the stream's
              own read inputs; then the kernel time a frame of 4 more frames
-             under torch.profiler;
+             under torch.profiler; every stream phase's line counts the
+             network's stage calls by how they ran (stage_graphs: eager,
+             captured into a CUDA graph, replayed) and the replay share;
+  graphs     the stages' CUDA graphs (models/cutie.py:StageGraphs): the
+             stream phase's 12 frames three times, each through a new
+             InferenceCore on one network as the benchmark makes a core a
+             clip; the first two runs are the warm-up, the third the
+             window: its stage calls by how they ran and its replay share
+             (replays over all calls), no capture in it, each run's masks
+             held to the golden and the window's probabilities bit-equal
+             to the first run's (eager and captured calls);
   lt_stream  the long-term path: the same in long-term mode over the 26
              frames of the long-term golden, with consolidation and reads
              over three value segments (perm | lt | work);
@@ -190,6 +200,7 @@ from cutie_tpu_torch.eval_vos import eval_vos
 from cutie_tpu_torch.gui.main_controller import FETCH_DEPTH, MainController
 from cutie_tpu_torch.inference import InferenceCore
 from cutie_tpu_torch.inference.inference_core import cudnn_timing
+from cutie_tpu_torch.models import cutie as cutie_model
 from cutie_tpu_torch.ops import cuda_build, read_kernel
 from cutie_tpu_torch.ops.memory import (_float_order_key, get_similarity,
                                         get_similarity_expanded, readout,
@@ -597,6 +608,7 @@ def run_stream(core, frames, step, size):
     read_kernel.radix_topk_readout.launches = 0
     read_kernel.fused_topk_readout.launches = 0
     timed = cudnn_timing.steps
+    stages = stage_calls()
     id_maps, frame_ms, per_frame = [], [], []
     for ti in range(frames.shape[0]):
         before = read_kernel.radix_topk_readout.launches
@@ -613,8 +625,21 @@ def run_stream(core, frames, step, size):
         id_maps.append(core.output_prob_to_mask(prob))
     launches = {"radix_topk_readout": read_kernel.radix_topk_readout.launches,
                 "fused_topk_readout": read_kernel.fused_topk_readout.launches,
-                "cudnn_timed_steps": cudnn_timing.steps - timed}
+                "cudnn_timed_steps": cudnn_timing.steps - timed,
+                "stage_graphs": stage_calls(stages)}
     return id_maps, frame_ms, launches, per_frame
+
+
+def stage_calls(since=None):
+    """The network's stage calls by how they ran (models/cutie.py:_stage's
+    counters), since the counts `since`, with the replay share."""
+    now = {key: getattr(cutie_model._stage, key)
+           for key in ("eager", "captures", "replays")}
+    if since is None:
+        return now
+    out = {key: now[key] - since[key] for key in now}
+    out["replay_share"] = out["replays"] / max(1, sum(out.values()))
+    return out
 
 
 def valid_probabilities(prob):
@@ -781,6 +806,42 @@ def phase_stream(k=30):
     return dict(launches=launches, max_abs=res["readout_max_abs"], case=case,
                 fps=fps_steady(frame_ms), kernel_ms_per_frame=kernel_ms,
                 id_maps=id_maps, frame_ms=frame_ms, **times)
+
+
+def phase_graphs():
+    t0 = time.perf_counter()
+    core = base_core()
+    net, cfg = core.network, core.cfg
+    rec, frames, mask0 = golden_video("stream480_work_trained.npz")
+    runs = []
+    for _ in range(3):
+        probs = []
+
+        def step(core, ti, frame):
+            prob = first_mask_step(mask0)(core, ti, frame)
+            probs.append(prob.clone())
+            return prob
+
+        id_maps, frame_ms, launches, _ = run_stream(
+            core, frames, step, (480, 854))
+        runs.append(dict(ious=stream_ious(id_maps, rec["masks"]), probs=probs,
+                         frame_ms=frame_ms, stages=launches["stage_graphs"]))
+        core = InferenceCore(net, cfg)
+    window = runs[-1]
+    bit_equal = all(torch.equal(a, b) for a, b in zip(window["probs"], runs[0]["probs"]))
+    ok = (all(iou_ok(r["ious"]) for r in runs) and bit_equal
+          and window["stages"]["captures"] == 0
+          and window["stages"]["replay_share"] >= 0.95)
+    emit({"phase": "graphs", "frames": len(frames), "runs": len(runs),
+          "stage_graphs": [r["stages"] for r in runs],
+          "graphs": len(net.stage_graphs.graphs),
+          "window_bit_equal_to_first_run": bit_equal,
+          "fps_frames_3_to_12": [fps_steady(r["frame_ms"]) for r in runs],
+          "iou_min": [float(r["ious"].min()) for r in runs],
+          "memory_peak_bytes": int(torch.cuda.max_memory_allocated()),
+          "ok": ok, "seconds": time.perf_counter() - t0})
+    if not ok:
+        raise RuntimeError("graphs phase failed")
 
 
 # tools/gen_golden.py:stream480_cfg(True), the settings the long-term golden
@@ -1905,7 +1966,8 @@ def click_pass(ctrl, image, h, w):
     then CLICKS clicks 10 px apart, alternately positive and negative; the
     anchor's and each click's wall ms (the probabilities fetched to the
     host), the outputs and, with f-BRS, each click's L-BFGS evaluations and
-    the device drive's report (lbfgs_drive's info; None with scipy)."""
+    the device drive's report (lbfgs_drive's info without its last step's
+    points, which are tensors; None with scipy)."""
     ctrl.unanchor()
     t0 = time.perf_counter()
     outs = [ctrl.interact(image, w // 3, h // 3, True)]
@@ -1917,7 +1979,8 @@ def click_pass(ctrl, image, h, w):
         ms.append((time.perf_counter() - t0) * 1e3)
         functor = getattr(ctrl.controller.predictor, "opt_functor", None)
         evals.append(functor.n_evals if functor is not None else 0)
-        drive.append(functor.drive_info if functor is not None else None)
+        drive.append(None if functor is None or functor.drive_info is None else
+                     {k: v for k, v in functor.drive_info.items() if k != "last_step"})
     return anchor_ms, ms, evals, outs, drive
 
 
@@ -2894,6 +2957,7 @@ def main():
     smi = phase_env()
     occupancy = phase_build()
     sres = phase_stream()
+    phase_graphs()
     lres = phase_lt_stream()
     by_path = {"stream": sres["launches"], "lt_stream": lres["launches"],
                "resize_stream": phase_resize_stream(),

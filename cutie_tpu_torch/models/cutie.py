@@ -18,15 +18,27 @@ method then runs under torch.autocast to bf16. Parameters stay fp32, and
 the fp32 islands (the GRUs' transforms and gates, the summarizer pooling,
 the logits head, the final sigmoid, LayerNorm and the attention softmax)
 run in fp32 (models/layers.py:fp32_island).
+
+CUDA graphs: on the card, with grad off, each stage call is keyed by its
+arguments' shapes, dtypes, strides and alignment, its flags and the
+network's modes. The first call of a key runs eagerly (and lets cuDNN time
+its plans, inference/inference_core.py:cudnn_timing), the second captures
+the stage into a CUDA graph with a private memory pool, and every later
+call copies its tensors into the graph's inputs, replays it and returns
+clones of its outputs. A replay launches the same kernels as the eager
+call, in one host launch. Training (grad on), the CPU, a call inside
+another capture and keys past MAX_STAGE_GRAPHS run eagerly.
 """
 from __future__ import annotations
 
 import contextlib
 import functools
-from typing import Dict, List, Optional
+import logging
+from typing import Dict, List, NamedTuple, Optional
 
 import torch
 import torch.nn as nn
+from torch.utils import _pytree as pytree
 
 from cutie_tpu_torch.config import Config
 from cutie_tpu_torch.models.aux_modules import AuxComputer
@@ -42,11 +54,21 @@ from cutie_tpu_torch.ops.resize import area_downsample, upsample_4x
 from cutie_tpu_torch.ops.tensor_utils import aggregate, clip
 from cutie_tpu_torch.utils.tracing import span
 
+log = logging.getLogger(__name__)
+
+# Graphs a network keeps at most; each holds a private pool of about its
+# stage's eager peak. A 480p stream of three objects captures 6, and each
+# other object count or flag value adds its own; past the cap a new key
+# runs eagerly.
+MAX_STAGE_GRAPHS = 64
+
 
 def _stage(span_name: Optional[str] = None):
     """Run a stage method under autocast to the model's compute dtype, and
     in the span "models.<span_name>" (utils/tracing.py) where one is
-    named."""
+    named; on the card from a CUDA graph (StageGraphs) where it can.
+    Autocast's weight cache is off: it would keep casts made inside a
+    capture, and a stage uses each weight once."""
     name = None if span_name is None else "models." + span_name
 
     def wrap(method):
@@ -54,16 +76,141 @@ def _stage(span_name: Optional[str] = None):
         def run(self, *args, **kwargs):
             with span(name) if name else contextlib.nullcontext(), torch.autocast(
                     self.pixel_mean.device.type, dtype=torch.bfloat16,
-                    enabled=self.compute_dtype == torch.bfloat16):
-                return method(self, *args, **kwargs)
+                    enabled=self.compute_dtype == torch.bfloat16,
+                    cache_enabled=False):
+                return self.stage_graphs.call(self, method, args, kwargs)
         return run
     return wrap
+
+
+# stage calls by how they ran: eagerly, captured (the call that captures
+# runs its graph once), replayed
+_stage.eager = 0
+_stage.captures = 0
+_stage.replays = 0
+
+
+def stage_key(net: "CUTIE", name: str, args, kwargs):
+    """(key, leaves, structure) of the stage call name(*args, **kwargs):
+    the key holds every tensor's shape, dtype, strides, device and address
+    modulo 16 bytes, every other argument, the network's modes (training,
+    compute dtype) and the global modes the kernels follow (inference
+    mode, cuDNN's timing and TF32, the matmul precision)."""
+    leaves, spec = pytree.tree_flatten((args, kwargs))
+    key = (name, spec, net.training, net.compute_dtype,
+           torch.is_inference_mode_enabled(), torch.backends.cudnn.benchmark,
+           torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision(),
+           tuple((tuple(x.shape), x.dtype, x.stride(), x.device, x.data_ptr() % 16)
+                 if torch.is_tensor(x) else x for x in leaves))
+    return key, leaves, spec
+
+
+def _extent(x: torch.Tensor) -> int:
+    """Elements of storage that x spans from its first element."""
+    if x.numel() == 0:
+        return 0
+    return 1 + sum((n - 1) * s for n, s in zip(x.shape, x.stride()))
+
+
+def _static_like(x: torch.Tensor) -> torch.Tensor:
+    """A new tensor with x's shape, strides and address modulo 16 bytes
+    (cuDNN keys its plans by alignment), expanded dimensions included."""
+    off = (x.data_ptr() % 16) // x.element_size()
+    flat = torch.empty(off + _extent(x), dtype=x.dtype, device=x.device)
+    return flat.as_strided(x.shape, x.stride(), off)
+
+
+def _copy_into(static: torch.Tensor, x: torch.Tensor) -> None:
+    """Copy x's storage span into static's (the same layout, by the key)."""
+    n = _extent(x)
+    static.as_strided((n,), (1,)).copy_(x.as_strided((n,), (1,)))
+
+
+class _Graph(NamedTuple):
+    """One captured stage call: its graph, the tensors it reads (None for
+    the other arguments), the outputs it writes (in its private pool) and
+    their structure."""
+    graph: "torch.cuda.CUDAGraph"
+    inputs: list
+    outputs: list
+    spec: pytree.TreeSpec
+
+
+class StageGraphs:
+    """The CUDA graphs of one network's stage calls, by key (module
+    docstring). A graph is never freed while the network holds its
+    weights where they were captured; moving the network (Module._apply)
+    drops them all."""
+
+    def __init__(self):
+        self.seen: Dict[tuple, int] = {}
+        self.graphs: Dict[tuple, Optional[_Graph]] = {}
+        self.stream: Optional[torch.cuda.Stream] = None   # the captures'
+
+    def clear(self) -> None:
+        self.seen.clear()
+        self.graphs.clear()
+        self.stream = None
+
+    def call(self, net: "CUTIE", method, args, kwargs):
+        """method(net, *args, **kwargs): eagerly, captured or replayed."""
+        if (not net.pixel_mean.is_cuda or torch.is_grad_enabled()
+                or torch.cuda.is_current_stream_capturing()):
+            _stage.eager += 1
+            return method(net, *args, **kwargs)
+        key, leaves, spec = stage_key(net, method.__name__, args, kwargs)
+        entry = self.graphs.get(key)
+        if entry is None:
+            self.seen[key] = n = self.seen.get(key, 0) + 1
+            if n == 2 and len(self.graphs) < MAX_STAGE_GRAPHS:
+                entry = self.graphs[key] = self._capture(net, method, leaves, spec)
+            if entry is None:
+                _stage.eager += 1
+                return method(net, *args, **kwargs)
+            _stage.captures += 1
+        else:
+            _stage.replays += 1
+        for static, x in zip(entry.inputs, leaves):
+            if static is not None:
+                _copy_into(static, x)
+        entry.graph.replay()
+        return pytree.tree_unflatten(
+            [x.clone() if torch.is_tensor(x) else x for x in entry.outputs], entry.spec)
+
+    def _capture(self, net: "CUTIE", method, leaves, spec) -> Optional[_Graph]:
+        """Capture method on a side stream into a private pool, without the
+        synchronize and cache flush of torch.cuda.graph; None (and the key
+        runs eagerly from then on) where the stage cannot be captured."""
+        inputs = [_static_like(x) if torch.is_tensor(x) else None for x in leaves]
+        args, kwargs = pytree.tree_unflatten(
+            [x if s is None else s for s, x in zip(inputs, leaves)], spec)
+        device = net.pixel_mean.device
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(device)
+        stream = self.stream
+        graph = torch.cuda.CUDAGraph()
+        stream.wait_stream(torch.cuda.current_stream(device))
+        try:
+            with torch.cuda.stream(stream):
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    out = method(net, *args, **kwargs)
+                finally:
+                    graph.capture_end()
+        except RuntimeError as e:
+            log.warning("%s runs eagerly: its capture failed (%s)", method.__name__, e)
+            return None
+        finally:
+            torch.cuda.current_stream(device).wait_stream(stream)
+        outputs, out_spec = pytree.tree_flatten(out)
+        return _Graph(graph, inputs, outputs, out_spec)
 
 
 class CUTIE(nn.Module):
 
     def __init__(self, cfg: Config, single_object: bool = False):
         super().__init__()
+        self.stage_graphs = StageGraphs()
         model_cfg = cfg.model
         self.model_cfg = model_cfg
         self.single_object = single_object
@@ -89,6 +236,11 @@ class CUTIE(nn.Module):
         self.register_buffer(
             "pixel_std", torch.tensor(model_cfg.pixel_std).view(-1, 1, 1),
             persistent=False)
+
+    def _apply(self, *args, **kwargs):
+        # the graphs read the parameters where they were captured
+        self.stage_graphs.clear()
+        return super()._apply(*args, **kwargs)
 
     def _normalize(self, image: torch.Tensor) -> torch.Tensor:
         return (image - self.pixel_mean) / self.pixel_std

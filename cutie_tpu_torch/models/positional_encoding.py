@@ -37,9 +37,17 @@ def _pos_enc_np(h: int, w: int, dim: int, scale: float,
     return np.ascontiguousarray(emb.transpose(2, 0, 1))
 
 
+@functools.lru_cache(maxsize=None)
+def _pos_enc_device(h: int, w: int, dim: int, scale: float, temperature: float,
+                    device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(_pos_enc_np(h, w, dim, scale, temperature)).to(device)
+
+
 def positional_encoding(h: int, w: int, dim: int, scale: float = 2 * math.pi,
                         temperature: float = 10000.0,
                         device=None) -> torch.Tensor:
-    """[dim, H, W] fp32 positional encoding."""
-    return torch.from_numpy(_pos_enc_np(h, w, dim, float(scale),
-                                        float(temperature))).to(device)
+    """[dim, H, W] fp32 positional encoding, uploaded once a shape and
+    device and shared by every caller (none writes it): an upload on every
+    call waited for the card, and a CUDA graph capture cannot hold one."""
+    return _pos_enc_device(h, w, dim, float(scale), float(temperature),
+                           torch.device("cpu" if device is None else device))

@@ -5,6 +5,7 @@ cutie/utils/tensor_utils.py:7-61). Spatial axes are the last two.
 """
 from __future__ import annotations
 
+import functools
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -43,8 +44,17 @@ def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     value equal to a bound (torch.maximum and torch.minimum split a tie),
     where torch.clamp passes all of it. A sigmoid saturates onto the
     bound 1 - 1e-7 over a range of fp32 logits, so the training gradient
-    sees the bounds often."""
-    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+    sees the bounds often. The bounds are 0-dim CPU tensors of x's dtype,
+    which a binary op on the card reads on the host: no upload, so no wait
+    for the card and nothing a CUDA graph capture refuses."""
+    return torch.minimum(torch.maximum(x, _host_scalar(lo, x.dtype)),
+                         _host_scalar(hi, x.dtype))
+
+
+@functools.lru_cache(maxsize=None)
+def _host_scalar(value: float, dtype: torch.dtype) -> torch.Tensor:
+    """A 0-dim CPU tensor, made once a value and dtype (never written)."""
+    return torch.tensor(value, dtype=dtype)
 
 
 def aggregate(prob: torch.Tensor, dim: int) -> torch.Tensor:

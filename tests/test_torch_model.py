@@ -133,7 +133,9 @@ def test_from_jax_variables_matches_flax_model():
 def test_tensor_ops_match_cutie_tpu():
     """ops/tensor_utils.py and ops/resize.py against cutie_tpu's (NHWC on
     the JAX side): padding, aggregation, area downsample, 2x/4x bilinear
-    upsample and nearest-exact, at fp32 rounding (rtol 1e-5, atol 1e-6)."""
+    upsample and nearest-exact, at fp32 rounding (rtol 1e-5, atol 1e-6);
+    clip's values and gradient exactly."""
+    import jax
     import jax.numpy as jnp
 
     from cutie_tpu.ops import resize as jresize
@@ -161,6 +163,20 @@ def test_tensor_ops_match_cutie_tpu():
     np.testing.assert_allclose(
         tensor_utils.aggregate_wbg_np(prob[0], keep_bg=True),
         jtu.aggregate_wbg_np(prob[0], keep_bg=True), **tol)
+
+    # clip: jnp.clip's values, and its gradient, half of it where x equals
+    # a bound
+    lo, hi = 1e-7, 1 - 1e-7
+    xc = np.array([-1.0, 0.0, lo, 0.3, hi, 1.0, 2.0, lo, hi], np.float32)
+    tx = torch.tensor(xc, requires_grad=True)
+    clipped = tensor_utils.clip(tx, lo, hi)
+    (clipped * t(np.arange(1, 10, dtype=np.float32))).sum().backward()
+    np.testing.assert_array_equal(clipped.detach().numpy(),
+                                  np.asarray(jnp.clip(xc, lo, hi)))
+    grad_j = jax.grad(lambda v: (jnp.clip(v, lo, hi) * jnp.arange(1, 10)).sum())(
+        jnp.asarray(xc))
+    np.testing.assert_array_equal(tx.grad.numpy(), np.asarray(grad_j))
+    assert tx.grad[2] == 1.5 and tx.grad[4] == 2.5
 
     def back(y):  # NHWC group -> NCHW group
         return np.transpose(np.asarray(y), (0, 1, 4, 2, 3))
